@@ -1,4 +1,4 @@
-"""pypic_tpu — a TPU-native 1D electrostatic particle-in-cell framework.
+"""pypic_tpu — a JAX 1D electrostatic particle-in-cell framework.
 
 A from-scratch JAX/XLA rebuild with the capabilities of the reference CPU code
 drobnyjt/pyPIC (four generations of a 1D electrostatic PIC engine; see

@@ -154,9 +154,7 @@ class CheckpointManager:
         so a crash mid-write still never corrupts the previous checkpoint.
         The reference blocks its loop on a synchronous pickle instead
         (pygcpic.py:1627-1632). ``extra`` is stored verbatim in every
-        manifest (run provenance — e.g. the CLI records whether the rho
-        leaf is live under a carried-deposit config, so resume knows
-        whether to trust or re-prime it)."""
+        manifest (run provenance)."""
         self.directory = directory
         self.extra = extra
         self.every = int(every)

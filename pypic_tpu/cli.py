@@ -34,9 +34,11 @@ def _cmd_list(_args):
 def _cmd_run(args):
     import jax
 
-    from . import checkpoint, diagnostics, presets, viz
+    from . import checkpoint, diagnostics, platform, presets
     from .parallel.mesh import maybe_initialize_distributed
     from .runner import run, run_thinned
+
+    platform.compile_cache()
 
     # env-gated multi-host bootstrap (PYPIC_COORDINATOR /
     # PYPIC_DISTRIBUTED=1): must run before any backend use so sharded
@@ -108,17 +110,9 @@ def _cmd_run(args):
     state = preset.state
     mgr = None
     if args.checkpoint_every:
-        # provenance marker: a rho/n leaf is only LIVE (updated past step 0)
-        # under a carried config — resume uses this to decide whether a
-        # restored rho can be trusted or must be re-primed from particles
-        rho_live = (
-            getattr(preset.config, "carried_deposit", "off") == "on"
-            or getattr(preset.config, "carried_rho", "off") == "on"
-        )
         mgr = checkpoint.CheckpointManager(
             os.path.join(outdir, "checkpoints"), every=args.checkpoint_every,
             async_write=args.async_checkpoint,
-            extra={"rho_live": rho_live},
         )
         if args.resume:
             state, manifest = mgr.restore(
@@ -155,33 +149,6 @@ def _cmd_run(args):
                 state = state.replace(**refresh)
                 print(f"seeded {sorted(refresh)} from the restored field "
                       "(pre-history checkpoint)", file=sys.stderr)
-            # carried-deposit/carried-rho configs: only a checkpoint WRITTEN
-            # under a carried config holds a live rho (manifest extra
-            # rho_live, recorded by the manager above) — a pre-carry / pre-
-            # leaf / carried-off checkpoint restores step-0 zeros or a stale
-            # init prime, so recompute from the restored particles. A
-            # carried-written checkpoint restores the exact kernel-summed
-            # carry; leave it untouched so resume stays bit-exact.
-            ckpt_rho_live = (
-                ".rho" in manifest.get("leaf_paths", [])
-                and manifest.get("extra", {}).get("rho_live", False)
-            )
-            if (getattr(preset.config, "carried_deposit", "off") == "on"
-                    and not ckpt_rho_live):
-                from .engines import magnetized as _magnetized
-
-                state = _magnetized.prime_carry(state, preset.config)
-                print("re-primed carried rho/n from restored positions "
-                      "(checkpoint written without a live carry)",
-                      file=sys.stderr)
-            if (getattr(preset.config, "carried_rho", "off") == "on"
-                    and not ckpt_rho_live):
-                from .parallel import domain as _domain
-
-                state = _domain.prime_rho(state, preset.config)
-                print("re-primed carried rho from restored positions "
-                      "(checkpoint written without a live carry)",
-                      file=sys.stderr)
             # sharded presets (domain_implicit) restore to host arrays;
             # re-place them on the device mesh before stepping
             reshard = preset.meta.get("reshard")
@@ -360,6 +327,8 @@ def _cmd_run(args):
             print("--gif needs --dump-particles frames; skipping",
                   file=sys.stderr)
         else:
+            from . import viz  # matplotlib + imageio: only when plotting
+
             xs, vs = viz.load_particle_dump(dump_path, args.dump_particles)
             gif_path = os.path.join(outdir, "phase_space.gif")
             viz.phase_space_replay(gif_path, xs, vs)
@@ -371,6 +340,8 @@ def _cmd_run(args):
     # (pygcpic.py:1634-1702)
     if (args.plot and hasattr(final, "iead")
             and preset.config.iead_energy_max > 0):
+        from . import viz
+
         cfg = preset.config
         labels = preset.meta.get("species_labels") or [
             f"Z{z}" for z in cfg.species_z
@@ -387,8 +358,7 @@ def _cmd_run(args):
             act = np.asarray(final.active) == 1
             xp = np.asarray(final.p)[act] * cfg.grid.dx
             vxp = np.asarray(final.vx)[act]
-            rho = (np.asarray(mdict["rho"])[-1] if "rho" in mdict
-                   else np.asarray(final.rho))
+            rho = np.asarray(mdict["rho"])[-1]
             viz.bca_figure(
                 os.path.join(outdir, "bca_dashboard.png"), xp, vxp,
                 np.sqrt(vxp.var()) + 1e-300, np.asarray(final.phi), rho,
@@ -401,6 +371,8 @@ def _cmd_run(args):
 
     # summary plot for the periodic engines
     if args.plot and hasattr(final, "v") and np.asarray(final.v).ndim == 1:
+        from . import viz
+
         params = preset.meta.get("params")
         xp = np.asarray(final.p)
         vp = np.asarray(final.v)
@@ -452,7 +424,7 @@ def main(argv=None):
                          "rounds up to a multiple)")
     rp.add_argument("--opt", action="append", metavar="KEY=VALUE",
                     help="extra preset keyword, repeatable (e.g. --opt "
-                         "field_solve=distributed --opt carried_rho=on); "
+                         "field_solve=distributed); "
                          "ints/floats auto-coerced, '-' mapped to '_'")
     rp.add_argument("--outdir", default="plots")
     rp.add_argument("--plot-every", type=int, default=0,

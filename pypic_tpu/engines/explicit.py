@@ -15,14 +15,13 @@ than the dead driver's inconsistent ``p2c**2`` / measure-free expressions
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax import lax
-from flax import struct
 
+from ..utils.pytree import PyTreeNode
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import (
@@ -39,23 +38,11 @@ class ExplicitConfig:
     grid: GridSpec
     dt: float
     p2c: float
-    # Governs the op-level deposits (the composed backend's per-step rho
-    # and the initial deposit in init_state/refresh_fields). The fused
-    # backends deposit INSIDE their Pallas sweep by design — this knob
-    # does not reach them.
     deposit_method: str = "auto"
-    # 'fused' runs gather + leapfrog + periodic wrap as one Pallas sweep
-    # (ops.pallas_cic.leapfrog_gather_push_pallas — skips the gathered
-    # field's HBM round-trip); 'composed' assembles from individual ops
-    # (per-particle q/m capable); 'auto' = fused when q/m are scalars.
-    backend: str = "auto"
     # Data-parallel particle sharding over a 1D mesh axis (wrap make_step
     # with parallel.make_data_parallel_step): per-shard rho deposits psum
     # before the replicated Poisson solve, so the carried rho/e leaves
-    # stay GLOBAL and the dp wrapper's replicated grid spec holds. The
-    # ONE-kernel cycle (in-kernel epilogue field solve) cannot host the
-    # psum between its deposit and solve, so dp uses the two-stage fused
-    # sweep (gather+push+deposit kernel, then solve) or the composed ops.
+    # stay GLOBAL and the dp wrapper's replicated grid spec holds.
     # Spatial scaling is parallel.domain; dp is the particle-count axis.
     axis_name: str | None = None
 
@@ -63,11 +50,9 @@ class ExplicitConfig:
         # numpy scalars are not weakly typed and would promote float32 state.
         object.__setattr__(self, "dt", float(self.dt))
         object.__setattr__(self, "p2c", float(self.p2c))
-        if self.backend not in ("auto", "fused", "composed"):
-            raise ValueError(f"unknown backend {self.backend!r}")
 
 
-class ExplicitState(struct.PyTreeNode):
+class ExplicitState(PyTreeNode):
     p: jax.Array  # (n,) positions in grid coordinates
     v: jax.Array  # (n,) velocities [m/s]
     q: jax.Array  # () or (n,) charge [C]
@@ -76,8 +61,7 @@ class ExplicitState(struct.PyTreeNode):
     # deposit(p) lets the push sweep deposit its OWN output for the next
     # step's solve, making the step a single particle sweep
     e: jax.Array  # (ng,) electric field of rho (same invariant: e ==
-    # solve(rho)) — carried so the one-kernel cycle can emit next step's
-    # field from its epilogue
+    # solve(rho))
     step: jax.Array  # () int32
 
 
@@ -140,27 +124,10 @@ def make_step(cfg: ExplicitConfig):
     dt_dx = dt / dx
     inv_dx = 1.0 / dx
 
-    # One-kernel cycle: the (width, K, ng) fold and (ng, ng) rho->E solve
-    # operators ride in VMEM — combined roughly (width/stride + 1) * ng^2
-    # floats, ~9 MB at the ng=1024 gate. Reference grids are 40-800 —
-    # always in-kernel there. Built lazily on first (traced) use so a
-    # composed-backend step never pays the ng-column solve or pins the
-    # arrays.
     ax = cfg.axis_name
 
     def _allreduce(x):
         return lax.psum(x, ax) if ax else x
-
-    # the in-kernel epilogue solve would see only the local shard's deposit
-    one_kernel = ng <= 1024 and not ax
-    _mats: list = []
-
-    def _cycle_mats():
-        if not _mats:
-            from ..ops.pallas_cic import explicit_cycle_matrices
-
-            _mats.append(explicit_cycle_matrices(ng, dx))
-        return _mats[0]
 
     def step(state: ExplicitState):
         qm = state.q / state.m
@@ -168,48 +135,17 @@ def make_step(cfg: ExplicitConfig):
         # step's sweep deposited rho and solved for E — pypic.py:715-719
         # as a loop-rotated invariant).
         rho, e = state.rho, state.e
-        scalar_qm = jnp.ndim(state.q) == 0 and jnp.ndim(state.m) == 0
-        if cfg.backend == "fused" and not scalar_qm:
-            raise ValueError(
-                "backend='fused' requires scalar q/m (per-particle charge/"
-                "mass arrays need backend='composed'; 'auto' picks it)"
-            )
-        use_fused = cfg.backend == "fused" or (
-            cfg.backend == "auto" and scalar_qm
+        e_p = gather(e, state.p, periodic=True)
+        p1, v1 = leapfrog_push(state.p, state.v, e_p, qm, dt, dt_dx)
+        p1 = jnp.mod(p1, ng)
+        w_rho = state.q * (cfg.p2c * inv_dx)
+        rho1 = deposit(
+            p1, jnp.broadcast_to(w_rho, p1.shape), ng,
+            periodic=True, method=cfg.deposit_method,
         )
-        if use_fused and one_kernel:
-            # The ENTIRE cycle (gather + leapfrog + wrap + deposit + field
-            # solve) as one Pallas sweep (pypic.py:715-731).
-            from ..ops.pallas_cic import explicit_cycle_pallas
-
-            fold_mat, me_mat = _cycle_mats()
-            p1, v1, rho1, e1 = explicit_cycle_pallas(
-                e, state.p, state.v, ng, qm=qm,
-                w=state.q * (cfg.p2c * inv_dx), dt=dt, dx=dx,
-                fold_mat=fold_mat, me_mat=me_mat,
-            )
-        elif use_fused:
-            from ..ops.pallas_cic import leapfrog_gather_push_deposit_pallas
-
-            p1, v1, rho1 = leapfrog_gather_push_deposit_pallas(
-                e, state.p, state.v, qm=qm,
-                w=state.q * (cfg.p2c * inv_dx), dt=dt, dx=dx,
-            )
-            rho1 = _allreduce(rho1)
-            phi1 = solve_periodic_neutralized(rho1, dx)
-            e1 = -grad_periodic(phi1, dx)
-        else:
-            e_p = gather(e, state.p, periodic=True)
-            p1, v1 = leapfrog_push(state.p, state.v, e_p, qm, dt, dt_dx)
-            p1 = jnp.mod(p1, ng)
-            w_rho = state.q * (cfg.p2c * inv_dx)
-            rho1 = deposit(
-                p1, jnp.broadcast_to(w_rho, p1.shape), ng,
-                periodic=True, method=cfg.deposit_method,
-            )
-            rho1 = _allreduce(rho1)
-            phi1 = solve_periodic_neutralized(rho1, dx)
-            e1 = -grad_periodic(phi1, dx)
+        rho1 = _allreduce(rho1)
+        phi1 = solve_periodic_neutralized(rho1, dx)
+        e1 = -grad_periodic(phi1, dx)
 
         # Exact grid mean of the current deposit (pypic.py:716): periodic
         # CIC tents sum to 1, so mean(deposit(p, q w v)) == sum(q w v)/ng —
@@ -230,90 +166,3 @@ def make_step(cfg: ExplicitConfig):
 
     return step
 
-
-class ResidentMetrics(NamedTuple):
-    """Per-step scalar metrics of run_resident (the (ng,) rho/e diagnostic
-    rows of StepMetrics are only available at chunk boundaries on the
-    resident path — the field history stays in VMEM)."""
-
-    field_energy: jax.Array  # (steps,)
-    kinetic_energy: jax.Array  # (steps,)
-    current_bias: jax.Array  # (steps,)
-
-
-def run_resident(cfg: ExplicitConfig, state: ExplicitState, steps: int,
-                 steps_per_call: int = 128):
-    """Run ``steps`` explicit cycles with the population VMEM-resident:
-    ``steps_per_call`` full PIC cycles per kernel invocation
-    (ops.pallas_cic.explicit_cycle_resident_pallas). At small n the
-    per-step cost of the scanned one-kernel path is XLA dispatch — ~25 us
-    at 1e4 particles on v5e vs ~2 us of particle work; the resident path
-    amortizes it across the chunk.
-
-    Same math as the one-kernel cycle (equivalence-tested); requires
-    scalar q/m, periodic bc, ng <= 1024 and n <= 32768. Returns
-    (final_state, ResidentMetrics) with the metrics stacked over all
-    ``steps`` exactly as runner.run stacks StepMetrics scalars.
-    """
-    ng = cfg.grid.ng
-    if cfg.axis_name is not None:
-        raise ValueError("run_resident is single-device (axis_name=None)")
-    if jnp.ndim(state.q) != 0 or jnp.ndim(state.m) != 0:
-        raise ValueError("run_resident requires scalar q/m")
-    if ng > 1024:
-        raise ValueError("run_resident requires ng <= 1024 (VMEM operators)")
-    if int(steps) <= 0 or int(steps_per_call) <= 0:
-        raise ValueError(
-            f"steps and steps_per_call must be >= 1, got "
-            f"{steps}/{steps_per_call}")
-    spc = min(int(steps_per_call), int(steps))
-    full, rem = divmod(int(steps), spc)
-    scan_full, rem_fn = _resident_fns(cfg, spc, full, rem)
-
-    parts = []
-    if full:
-        state, (fe, ke, jb) = scan_full(state)
-        parts.append((fe.reshape(-1), ke.reshape(-1), jb.reshape(-1)))
-    if rem:
-        state, (fe, ke, jb) = rem_fn(state)
-        parts.append((fe, ke, jb))
-    fe, ke, jb = (jnp.concatenate([p[i] for p in parts]) for i in range(3))
-    return state, ResidentMetrics(fe, ke, jb)
-
-
-@functools.lru_cache(maxsize=16)
-def _resident_fns(cfg: ExplicitConfig, spc: int, full: int, rem: int):
-    """Jitted chunk runners, cached per (config, chunking) so repeated
-    run_resident calls reuse the compiled executables (a fresh closure per
-    call would retrace+recompile every time)."""
-    from ..ops.pallas_cic import (
-        explicit_cycle_resident_pallas,
-        explicit_resident_matrices,
-    )
-
-    ng, dx = cfg.grid.ng, cfg.grid.dx
-    fold, me, sel = explicit_resident_matrices(ng, dx)
-
-    def chunk(st: ExplicitState, n_steps: int):
-        qm = st.q / st.m
-        p1, v1, rho1, e1, fe, ke, jb = explicit_cycle_resident_pallas(
-            st.e, st.p, st.v, ng, n_steps,
-            qm=qm, w=st.q * (cfg.p2c / dx),
-            ke_c=0.5 * cfg.p2c * st.m,
-            jb_c=st.q * (cfg.p2c / dx / ng),
-            dt=cfg.dt, dx=dx, fold_mat=fold, me_mat=me, sel_mat=sel,
-            fe_c=0.5 * EPSILON_0 * dx,
-        )
-        st1 = st.replace(p=p1, v=v1, rho=rho1, e=e1.astype(p1.dtype),
-                         step=st.step + n_steps)
-        return st1, (fe, ke, jb)
-
-    @jax.jit
-    def scan_full(st):
-        def body(st, _):
-            return chunk(st, spc)
-
-        return lax.scan(body, st, None, length=full)
-
-    rem_fn = jax.jit(functools.partial(chunk, n_steps=rem)) if rem else None
-    return (scan_full if full else None), rem_fn

@@ -1,6 +1,6 @@
 """Implicit energy-conserving periodic PIC engine (Crank-Nicolson + Picard).
 
-The flagship engine — a TPU rebuild of the gen-3 numba hot kernel
+The flagship engine — a JAX rebuild of the gen-3 numba hot kernel
 ``particle_push_p`` (pypic.py:216-300) and its driver ``implicit_pic``
 (pypic.py:472-651):
 
@@ -29,14 +29,13 @@ broadcasting covers both with zero code divergence.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import lax
 
+from .. import platform
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import (
@@ -46,6 +45,8 @@ from ..ops import (
     smooth_periodic,
     solve_periodic_neutralized,
 )
+from ..ops.picard import picard_finalize, picard_pass
+from ..utils.pytree import PyTreeNode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,10 +58,11 @@ class ImplicitConfig:
     maxiter: int = 20  # pypic.py:860
     deposit_method: str = "auto"
     tracer: int = 0  # tracer particle index for trajectory diagnostics
-    # 'fused' runs each Picard inner pass as one Pallas kernel (gather + CN
-    # push + half-step deposit in a single particle sweep, the performance
-    # path); 'composed' assembles the pass from individual ops (works with
-    # per-particle q/m arrays, e.g. the gen-1 electron+ion two-stream,
+    # 'fused' runs each Picard inner pass as one particle sweep
+    # (ops.picard: gather + CN push + half-step deposit) and honours every
+    # finalize / finalize_field mode; 'composed' assembles the reference's
+    # loop body from individual ops and returns its last iterate (works
+    # with per-particle q/m arrays, e.g. the gen-1 electron+ion two-stream,
     # PIC_L.py:339). 'auto' = fused when q/m are scalars.
     backend: str = "auto"
     # Binomial smoothing of the gathered field guess and of the Ampere
@@ -131,22 +133,9 @@ class ImplicitConfig:
     #     assuming its ratio. Falls back to eh_k while fewer than three map
     #     outputs exist or when ρ is out of its trust region.
     finalize_field: str = "last"
-    # Shared-window Picard deposit (fused backend): reuse the gather's
-    # window decomposition + one-hot selector for the deposit
-    # (ops.pallas_cic._picard_iter_sw_kernel — the selector build is the
-    # second-largest VPU cost of the pass). The engine then seeds the
-    # position iterate at the free-streaming midpoint p0 + (dt/2dx) v0 so
-    # the deposit offset from the gather window is only an acceleration
-    # displacement; deposits clamped at the widened window edge are
-    # counted in the picard_clamped metric (0 in any sane configuration —
-    # nonzero means the field is violent enough to need 'separate').
-    # 'auto' = separate everywhere: the v5e A/B measured every shared
-    # geometry 22-45% SLOWER at 1e8 (pad=2, frame-8, frame-16 — PERF.md
-    # round 3h), so 'shared' stays an accuracy option (~20x less drift
-    # on the violent 1e4-step protocol, 3 seeds) rather than a speed
-    # default. 'separate' = the round-2c two-decomposition pass (also
-    # the reference-matching ps0 = p0 seed).
-    window_share: str = "auto"
+    # Implementation of the fused Picard pass (ops.picard): 'xla' | 'triton'
+    # | 'auto' (the platform module's measured choice, pypic_tpu.platform).
+    picard_impl: str = "auto"
 
     def __post_init__(self):
         # numpy scalars are not weakly typed and would promote float32 state.
@@ -168,13 +157,11 @@ class ImplicitConfig:
                 f"finalize_field={self.finalize_field!r} would be silently "
                 "ignored; use finalize='converged' (or finalize_field='last')"
             )
-        if self.window_share not in ("auto", "shared", "separate"):
-            raise ValueError(f"unknown window_share {self.window_share!r}")
         if self.backend not in ("auto", "fused", "composed"):
             raise ValueError(f"unknown backend {self.backend!r}")
 
 
-class ImplicitState(struct.PyTreeNode):
+class ImplicitState(PyTreeNode):
     p: jax.Array  # (n,) positions in grid coordinates
     v: jax.Array  # (n,) velocities [m/s]
     q: jax.Array  # () or (n,) charge [C]
@@ -198,9 +185,6 @@ class StepMetrics(NamedTuple):
     picard_residual: jax.Array
     tracer_x: jax.Array  # grid coords
     tracer_v: jax.Array
-    # deposits clamped at the shared-window edge (fused backend with
-    # window_share; always 0 on the separate-window and composed paths)
-    picard_clamped: jax.Array = 0
 
 
 def init_state(x, v, q, m, cfg: ImplicitConfig, dtype=jnp.float32) -> ImplicitState:
@@ -234,6 +218,7 @@ def make_step(cfg: ImplicitConfig):
     dt = cfg.dt
     dt_dx = dt / dx
     inv_dx = 1.0 / dx
+    method = cfg.deposit_method
 
     def _smooth(f):
         return smooth_periodic(f) if cfg.smooth else f
@@ -283,7 +268,8 @@ def make_step(cfg: ImplicitConfig):
         return mix_init(e0, accel)
 
     def step_fused(state: ImplicitState):
-        """Pallas-fused Picard: one particle sweep per inner iteration.
+        """Fused Picard: one particle sweep (``ops.picard.picard_pass``) per
+        inner iteration.
 
         finalize='converged' refines the composed path: the final
         (p1, v1, j1) are recomputed from the *converged* half-step field
@@ -293,41 +279,21 @@ def make_step(cfg: ImplicitConfig):
         reconstructed elementwise from the iterate's full-step velocity —
         no extra sweep.
         """
-        from ..ops.pallas_cic import (
-            block_particles,
-            picard_iteration_pallas,
-            picard_finalize_nodep_pallas,
-            picard_finalize_pallas,
-            unblock_particles,
-        )
-
         p0, v0, e0 = state.p, state.v, state.e
         # q/m are scalars on this path (checked by the dispatcher below).
         qm_s = state.q / state.m
         w_s = state.q * (cfg.p2c * inv_dx)
         emit_v = cfg.finalize == "iterate"
-
-        # Block the particle arrays ONCE per step: the while_loop then
-        # carries the Picard position iterate in the kernels' blocked
-        # layout, so no pad-concat/slice-back copies happen per pass
-        # (~4 ms/pass at a misaligned 1e8 on v5e).
-        n = p0.shape[0]
-        (p0_b, v0_b), _ = block_particles([p0, v0])
-        share = cfg.window_share == "shared"
+        impl = platform.picard_impl(p0.shape[0], cfg.picard_impl)
+        sweep = dict(qm=qm_s, dt=dt, dx=dx, impl=impl, method=method)
 
         def cond(c):
             return (c["r"] > cfg.tol) & (c["k"] < cfg.maxiter)
 
         def body(c):
             es = c["es"]
-            outs = picard_iteration_pallas(
-                _smooth(es), c["ps"], p0_b, v0_b, ng,
-                qm=qm_s, w=w_s, dt=dt, dx=dx, emit_v=emit_v, n_valid=n,
-                share_window=share,
-            )
-            if share:
-                ncl = c["ncl"] + outs[-1]
-                outs = outs[:-1]
+            outs = picard_pass(_smooth(es), c["ps"], p0, v0, ng, w=w_s,
+                               emit_v=emit_v, **sweep)
             jh = _allreduce(outs[-1])
             e1 = e0 + (dt / EPSILON_0) * (jnp.mean(jh) - _smooth(jh))
             eh = 0.5 * (e1 + e0)
@@ -335,8 +301,6 @@ def make_step(cfg: ImplicitConfig):
             es_next, aux = _mix(es, eh, c["k"], c["aux"])
             nxt = dict(c, es=es_next, ps=outs[0], e1=e1, r=r, k=c["k"] + 1,
                        aux=aux)
-            if share:
-                nxt["ncl"] = ncl
             if keep_eh2:
                 nxt["ehpp"] = c["ehp"]
             if keep_eh:
@@ -347,13 +311,6 @@ def make_step(cfg: ImplicitConfig):
                 nxt["v1"] = outs[1]
             return nxt
 
-        # Note: an in-epilogue Ampere advance (the explicit engine's
-        # one-kernel-cycle pattern applied to the Picard iteration) was
-        # built and measured performance-NEUTRAL here — the HIGHEST-
-        # precision (ng, ng) matmuls the tol=1e-9 residual requires cost
-        # as much as the XLA glue they replace (v5e: headline 39.5-39.7 ms
-        # either way, landau row inside its 0.13-0.16 ms noise band) —
-        # and was removed; see PERF.md negative results.
         keep_jh = cfg.finalize in ("iterate", "converged")
         # finalize_field='mean2' needs the last two Picard map outputs
         # (eh_k, eh_{k-1}) in the carry — the finalize sweep then gathers
@@ -364,21 +321,14 @@ def make_step(cfg: ImplicitConfig):
                    and not emit_v)
         keep_eh2 = cfg.finalize_field == "aitken" and not emit_v
         es0 = _es0(state)
-        if share:
-            # free-streaming midpoint seed: keeps the deposit offset from
-            # the shared gather window at an acceleration displacement
-            ps0 = p0_b + (0.5 * dt_dx) * v0_b
-            ps0 = ps0 - jnp.floor(ps0 * (1.0 / ng)) * ng
-        else:
-            ps0 = p0_b  # the reference's first gather position (pypic.py:253)
         c0 = {
-            "es": es0, "ps": ps0, "e1": e0,
+            "es": es0,
+            "ps": p0,  # the reference's first gather position (pypic.py:253)
+            "e1": e0,
             "r": jnp.asarray(jnp.inf, e0.dtype),
             "k": jnp.asarray(0, jnp.int32),
             "aux": _mix_init(e0),
         }
-        if share:
-            c0["ncl"] = jnp.asarray(0, jnp.int32)
         if keep_eh:
             c0["eh"] = es0
             c0["ehp"] = es0
@@ -387,7 +337,7 @@ def make_step(cfg: ImplicitConfig):
         if keep_jh:
             c0["jh"] = state.j
         if emit_v:
-            c0["v1"] = v0_b
+            c0["v1"] = v0
         c = lax.while_loop(cond, body, c0)
         e1, r, k = c["e1"], c["r"], c["k"]
         # Field the finalize sweep evaluates the converged update with.
@@ -414,9 +364,7 @@ def make_step(cfg: ImplicitConfig):
             ef = c["eh"] + jnp.where(trust, corr, jnp.zeros_like(corr))
 
         if emit_v:
-            # Pad lanes of the blocked iterate hold garbage — slice before
-            # any reduction.
-            v1 = unblock_particles(c["v1"], n)
+            v1 = c["v1"]
             # p1 of the same iterate: qm dt^2/2 e_p == dt/dx * (v1 - v0)/2,
             # so p1 = p0 + dt/dx (v0 + v1)/2 (pypic.py:264, re-associated).
             p1 = p0 + (0.5 * dt_dx) * (v0 + v1)
@@ -426,21 +374,13 @@ def make_step(cfg: ImplicitConfig):
             # tent weights sum to 1, so mean(deposit(p1, w v1)) == w sum(v1)/ng.
             current_bias = (w_s / ng) * _allreduce(jnp.sum(v1))
         elif cfg.finalize == "converged":
-            p1_b, v1_b = picard_finalize_nodep_pallas(
-                _smooth(ef), c["ps"], p0_b, v0_b, ng,
-                qm=qm_s, dt=dt, dx=dx, n_valid=n,
-            )
-            p1 = unblock_particles(p1_b, n)
-            v1 = unblock_particles(v1_b, n)
+            p1, v1 = picard_finalize(_smooth(ef), c["ps"], p0, v0, ng,
+                                     **sweep)
             j1 = c["jh"]
             current_bias = (w_s / ng) * _allreduce(jnp.sum(v1))
         else:  # 'converged-deposit'
-            p1_b, v1_b, j1 = picard_finalize_pallas(
-                _smooth(ef), c["ps"], p0_b, v0_b, ng,
-                qm=qm_s, w=w_s, dt=dt, dx=dx, n_valid=n,
-            )
-            p1 = unblock_particles(p1_b, n)
-            v1 = unblock_particles(v1_b, n)
+            p1, v1, j1 = picard_finalize(_smooth(ef), c["ps"], p0, v0, ng,
+                                         w=w_s, **sweep)
             j1 = _allreduce(j1)
             current_bias = jnp.mean(j1)
 
@@ -452,9 +392,6 @@ def make_step(cfg: ImplicitConfig):
             picard_residual=r,
             tracer_x=_from_shard0(p1[cfg.tracer]),
             tracer_v=_from_shard0(v1[cfg.tracer]),
-            picard_clamped=(
-                _allreduce(c["ncl"]) if share else jnp.asarray(0, jnp.int32)
-            ),
         )
         new_state = state.replace(p=p1, v=v1, e=e1, j=j1, e_prev=state.e,
                                   e_prev2=state.e_prev, step=state.step + 1)
@@ -496,10 +433,10 @@ def make_step(cfg: ImplicitConfig):
             ph = jnp.mod(0.5 * (p0 + p1), ng)
             vh = 0.5 * (v0 + v1)
             jh = _allreduce(deposit(ph, jnp.broadcast_to(w, ph.shape) * vh, ng,
-                                    periodic=True, method=cfg.deposit_method))
+                                    periodic=True, method=method))
             p1 = jnp.mod(p1, ng)
             j1 = _allreduce(deposit(p1, jnp.broadcast_to(w, p1.shape) * v1, ng,
-                                    periodic=True, method=cfg.deposit_method))
+                                    periodic=True, method=method))
             # Ampere advance + half-step field (pypic.py:283-285).
             e1 = e0 + (dt / EPSILON_0) * (jnp.mean(jh) - _smooth(jh))
             eh = 0.5 * (e1 + e0)
@@ -527,7 +464,6 @@ def make_step(cfg: ImplicitConfig):
             picard_residual=r,
             tracer_x=_from_shard0(p1[cfg.tracer]),
             tracer_v=_from_shard0(v1[cfg.tracer]),
-            picard_clamped=jnp.asarray(0, jnp.int32),
         )
         new_state = state.replace(p=p1, v=v1, e=e1, j=j1, e_prev=state.e,
                                   e_prev2=state.e_prev, step=state.step + 1)
@@ -535,136 +471,3 @@ def make_step(cfg: ImplicitConfig):
 
     return step
 
-
-def check_resident_supported(cfg: ImplicitConfig,
-                             state: ImplicitState) -> None:
-    """Raise ValueError when (cfg, state) is outside run_resident's
-    supported space — callers probe this WITHOUT compiling a kernel."""
-    from ..ops.pallas_cic import _RESIDENT_MAX_N_IMPLICIT
-
-    if jnp.ndim(state.q) != 0 or jnp.ndim(state.m) != 0:
-        raise ValueError("run_resident requires scalar q/m")
-    if cfg.backend == "composed":
-        # the composed step returns the reference's LAST-ITERATE semantics;
-        # the resident kernel implements the converged-fused math — letting
-        # it through would silently change the trajectory vs runner.run
-        raise ValueError("run_resident implements the fused backend only "
-                         "(backend='composed' selects last-iterate "
-                         "semantics; use the scanned step)")
-    if cfg.grid.ng > 1024:
-        raise ValueError("run_resident requires ng <= 1024 (VMEM operators)")
-    if state.p.shape[0] > _RESIDENT_MAX_N_IMPLICIT:
-        raise ValueError(
-            f"run_resident requires n <= {_RESIDENT_MAX_N_IMPLICIT}")
-    if cfg.axis_name is not None:
-        raise ValueError("run_resident is single-device (axis_name=None)")
-    if cfg.picard_init not in ("field", "extrapolate"):
-        raise ValueError("run_resident supports picard_init "
-                         "'field'/'extrapolate'")
-    if cfg.picard_accel not in ("none", "anderson"):
-        raise ValueError("run_resident supports picard_accel "
-                         "'none'/'anderson'")
-    if cfg.finalize != "converged" or cfg.finalize_field != "last":
-        raise ValueError("run_resident supports finalize='converged', "
-                         "finalize_field='last'")
-    if cfg.window_share == "shared":
-        raise ValueError("run_resident implements the separate-window pass "
-                         "only (use the scanned step for window_share="
-                         "'shared')")
-
-
-def run_resident(cfg: ImplicitConfig, state: ImplicitState, steps: int,
-                 steps_per_call: int = 64):
-    """Run ``steps`` implicit CN-Picard steps with the population
-    VMEM-resident: ``steps_per_call`` full steps (Picard while_loop
-    included) per kernel invocation (ops.pallas_cic.
-    implicit_resident_pallas). At small n the scanned fused path is
-    dominated by per-step XLA dispatch (~0.15 ms at 1e5 particles on v5e
-    across ~50 small ops + 4 kernel launches); the resident path keeps
-    particles, fields, and the Picard loop inside one kernel.
-
-    Same math as the fused step with finalize='converged',
-    finalize_field='last', separate windows (the supported configuration
-    space — picard_init 'field'/'extrapolate', picard_accel
-    'none'/'anderson', smooth on/off; other options raise). The smoothing
-    / window-view / fold operators are baked HIGHEST-precision
-    contractions, so trajectories agree with the scanned path to f32
-    contraction rounding (equivalence-tested), not bit-for-bit.
-
-    Returns (final_state, StepMetrics) with every metric stacked over all
-    ``steps`` exactly as runner.run stacks them.
-
-    State-fidelity note: the returned e_prev is exact (the last step's
-    pre-advance field), but e_prev2 is set to the previous CHUNK's e_prev
-    (exact only at steps_per_call=1). It only feeds
-    picard_init='extrapolate2', which this path rejects anyway — a
-    follow-on extrapolate2 run should take one scanned step first.
-    """
-    check_resident_supported(cfg, state)
-    if int(steps) <= 0 or int(steps_per_call) <= 0:
-        raise ValueError(
-            f"steps and steps_per_call must be >= 1, got "
-            f"{steps}/{steps_per_call}")
-    spc = min(int(steps_per_call), int(steps))
-    full, rem = divmod(int(steps), spc)
-    scan_full, rem_fn = _resident_fns(cfg, spc, full, rem)
-
-    parts = []
-    if full:
-        state, rows = scan_full(state)
-        parts.append({k: v.reshape(-1) for k, v in rows.items()})
-    if rem:
-        state, rows = rem_fn(state)
-        parts.append(rows)
-    cat = {k: jnp.concatenate([p[k] for p in parts]) for k in parts[0]}
-    metrics = StepMetrics(
-        field_energy=cat["fe"],
-        kinetic_energy=cat["ke"],
-        current_bias=cat["jb"],
-        picard_iters=cat["iters"],
-        picard_residual=cat["resid"],
-        tracer_x=cat["tracer_x"],
-        tracer_v=cat["tracer_v"],
-        picard_clamped=jnp.zeros_like(cat["iters"]),
-    )
-    return state, metrics
-
-
-@functools.lru_cache(maxsize=16)
-def _resident_fns(cfg: ImplicitConfig, spc: int, full: int, rem: int):
-    """Jitted chunk runners, cached per (config, chunking) so repeated
-    run_resident calls reuse the compiled executables (a fresh closure per
-    call would retrace+recompile every time)."""
-    from ..ops.pallas_cic import (
-        implicit_resident_matrices,
-        implicit_resident_pallas,
-    )
-
-    ng, dx = cfg.grid.ng, cfg.grid.dx
-    fold, sels, sm = implicit_resident_matrices(ng, cfg.smooth)
-
-    def chunk(st: ImplicitState, n_steps: int):
-        p1, v1, e1, eprev, jh, rows = implicit_resident_pallas(
-            st.e, st.e_prev, st.j, st.p, st.v, ng, n_steps,
-            qm=st.q / st.m, w=st.q * (cfg.p2c / dx),
-            ke_c=0.5 * cfg.p2c * st.m,
-            dt=cfg.dt, dx=dx, tol=cfg.tol, maxiter=cfg.maxiter,
-            extrapolate=cfg.picard_init == "extrapolate",
-            anderson=cfg.picard_accel == "anderson",
-            fe_c=0.5 * EPSILON_0 * dx, tracer=cfg.tracer,
-            fold_mat=fold, sels_mat=sels, sm_mat=sm,
-        )
-        st1 = st.replace(p=p1, v=v1, e=e1, j=jh, e_prev=eprev,
-                         e_prev2=st.e_prev, step=st.step + n_steps)
-        return st1, rows
-
-    @jax.jit
-    def scan_full(st):
-        def body(st, _):
-            return chunk(st, spc)
-
-        return lax.scan(body, st, None, length=full)
-
-    rem_fn = (jax.jit(functools.partial(chunk, n_steps=rem))
-              if rem else None)
-    return (scan_full if full else None), rem_fn

@@ -38,9 +38,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import lax
 
+from ..utils.pytree import PyTreeNode
 from ..constants import E_CHARGE, EPSILON_0, EV_TO_K, K_BOLTZMANN, M_ELECTRON
 from ..grid import DIRICHLET_NEUMANN, GridSpec
 from ..ops import (
@@ -81,22 +81,12 @@ class MagnetizedConfig:
     newton_maxiter: int = 1000  # pygcpic.py:1023
     # Newton warm start: 'previous' = the reference's warm start at the
     # last phi (pygcpic.py:1046, the default); 'extrapolate' =
-    # 2 phi - phi_prev. Negative result (round 3, measured on pic_iead at
-    # 1e6 on v5e): extrapolation RAISES the mean Newton count 3.4 -> 3.8 —
+    # 2 phi - phi_prev. Negative result (pic_iead at 1e6): extrapolation
+    # RAISES the mean Newton count 3.4 -> 3.8 —
     # the stochastic wall-loss/re-activation noise in phi is amplified 2x
     # by the linear prediction, outweighing the quasi-steady drift it
     # tracks. Kept as an option for smooth (noise-free) configurations.
     newton_warm: str = "previous"
-    # Newton-Boltzmann solver backend: 'xla' = ops.poisson while_loop with
-    # the O(log n) associative-scan tridiagonal solve; 'pallas' = the whole
-    # Newton loop in ONE kernel with a PCR tridiagonal solve
-    # (ops.pallas_newton — kills the ~100 us/iteration XLA dispatch latency
-    # that made the solve the largest item of the 1e6-particle step budget,
-    # PERF.md round 3). Same algorithm and globalization; converged phi
-    # agrees to tol, not bit-for-bit (PCR sums in a different order).
-    # 'auto' = pallas on TPU for the f32 path — BOTH wall conditions
-    # (D-D via pure PCR, D-N via the Sherman-Morrison 2-RHS variant).
-    newton_backend: str = "auto"
     ionization: bool = False
     max_charge_state: int = 3  # pygcpic.py:1512 gate; 1 == reference quirk
     reactivate: str = "none"  # 'source' | 'capped-source' | 'flux' | 'none'
@@ -112,20 +102,13 @@ class MagnetizedConfig:
     # (sources.sample_source_6d_hash / sample_flux_6d_hash — identical
     # distributions, and the only sampler whose draws are shard-count-
     # invariant under data-parallel sharding, so it is REQUIRED for
-    # axis_name runs). Round-3 device profile: the hash mixer is ~0.23 ms
-    # at 1e6 capacity on v5e (the VPU has no native u32 multiply; its
-    # Box-Muller sine fusion was the single largest XLA op in the step)
-    # vs ~0.14 for threefry; 'pallas' = zero-input hardware-PRNG kernel
-    # (ops.pallas_rng.source_batch_pallas — no operand-materialization tax,
-    # 'source'/'capped-source' only). 'auto' resolves at make_step: hash
-    # under data-parallel, pallas on single-device TPU, threefry otherwise
-    # (kept symbolic so dataclasses.replace(cfg, axis_name=...)
-    # re-resolves).
+    # axis_name runs). 'auto' resolves at make_step: hash under
+    # data-parallel, threefry otherwise (kept symbolic so
+    # dataclasses.replace(cfg, axis_name=...) re-resolves).
     source_sampler: str = "auto"
-    # Capped re-activation draw (round 3): 0 = draw a full-capacity batch
-    # every step and mask in the slots that re-activate (the reference's
-    # fixed-shape semantics; the draw itself is ~0.25 ms of the 1e6 step on
-    # v5e while only ~0.1% of slots take it). > 0 = draw only this many
+    # Capped re-activation draw: 0 = draw a full-capacity batch every step
+    # and mask in the slots that re-activate (the reference's fixed-shape
+    # semantics, though only ~0.1% of slots take a draw). > 0 = draw only this many
     # samples, keyed on the slot's re-activation RANK (its order among this
     # step's inactive slots), and gather batch[rank] into the take slots —
     # at most react_batch slots re-activate per step; any surplus inactive
@@ -136,36 +119,6 @@ class MagnetizedConfig:
     # Not bit-compatible with react_batch=0 (a slot's draw is keyed on rank
     # instead of slot id — identical distribution, equivalence-tested).
     react_batch: int = 0
-    # Carried-deposit step (PERF.md round-4 lead, built round 3c): the
-    # step-opening rho/n deposit over the active particles
-    # (pygcpic.py:841-905) rides the PREVIOUS step's push kernel — the
-    # fused gather+Boris sweep deposits each surviving particle's tent at
-    # its new position inside the gather's window (widened by
-    # ``carried_pad`` cells), and the post-push mutations patch the carry:
-    # wall hits are zeroed in-kernel; ionization charge deltas,
-    # re-activated slots and bca_escape removals land as small packed
-    # deposits. Saves the whole deposit2 pass minus the relocated tent
-    # work (~0.3-0.35 ms of the ~1 ms step at 1e6 on v5e, projected).
-    # 'on' | 'off' | 'auto' (auto = off until the TPU A/B + physics
-    # re-verification land). Dynamics match the recomputed deposit up to
-    # f32 summation order PROVIDED the carry_clamped, n_ion_suppressed
-    # and n_escape_deferred metrics stay 0 (all are hard guarantees of
-    # charge bookkeeping, not silent drops: a clamped tent stays in-grid
-    # at the widened window edge — misplaced by up to the particle's
-    # DISPLACEMENT that step, not by carried_pad — and is counted;
-    # over-cap ionization events revert entirely; over-cap escapes defer
-    # one step). Requires
-    # pusher='boris' and react_batch > 0 whenever reactivate != 'none'
-    # (the re-activation patch capacity).
-    carried_deposit: str = "auto"
-    # mutation-patch row budget per event TYPE per step (per shard under
-    # dp): ionization events beyond it revert (charge_state unchanged,
-    # counted in n_ion_suppressed) and — when bca_escape is on — escape
-    # removals beyond it defer one step (counted in n_escape_deferred).
-    # Size it far above the physical rates (reference workloads ionize
-    # O(10)/step at 1e6).
-    carried_ion_cap: int = 16384
-    carried_pad: int = 2  # deposit window widening [cells]
     flux_limit: int = 0  # max re-activations/step on the 'flux' policy
     flux_gamma: float = 0.0  # perturbed-beam fraction (pygcpic.py:2008)
     flux_vx_pert: float = 0.0
@@ -184,11 +137,6 @@ class MagnetizedConfig:
     iead_bins: Tuple[int, int] = (40, 40)  # (energies, angles)
     iead_energy_max: float = 0.0  # [eV]; 0 disables IEAD accumulation
     iead_angle_max: float = 90.0
-    # (An iead_pack>0 packed-accumulation path existed through round 3:
-    # pack wall-hit rows, histogram the packed buffer. Measured +5.8 ms/
-    # step at 1e6 on v5e — the pack scatter is TPU-hostile — and deleted
-    # round 4; PERF.md round 3g keeps the record. The full-capacity
-    # delta-deposit pass below IS the reference's exact semantics.)
     deposit_method: str = "auto"
     # Wall-impact extraction for the BCA surface coupling (pypic_tpu.bca):
     # when > 0, each step returns up to this many (energy_eV, angle_deg,
@@ -201,10 +149,6 @@ class MagnetizedConfig:
     # accumulating their energy-angle distribution separately
     # (pygcpic.py:1529-1541, iead_out_* at 1426-1427).
     bca_escape: bool = False
-    # 'fused' runs the particle path as two Pallas sweeps — one dual-value
-    # deposit (rho + n share a tent build) and one bounded gather + Boris
-    # push — instead of four XLA passes; 'auto' = fused on TPU at scale.
-    backend: str = "auto"
     # Hot-loop pusher: 'boris' (pygcpic.py:460-507 — what every reference
     # driver integrates with) or 'gc' — guiding-center RK4
     # (pygcpic.py:598-645) with per-particle mode as the reference's
@@ -268,49 +212,25 @@ class MagnetizedConfig:
             object.__setattr__(self, f, float(getattr(self, f)))
         object.__setattr__(self, "b", tuple(float(v) for v in self.b))
         object.__setattr__(self, "species_z", tuple(int(z) for z in self.species_z))
-        if self.source_sampler not in ("auto", "hash", "threefry", "pallas"):
+        if self.source_sampler not in ("auto", "hash", "threefry"):
             raise ValueError(f"unknown source_sampler {self.source_sampler!r}")
         if self.newton_warm not in ("extrapolate", "previous"):
             raise ValueError(f"unknown newton_warm {self.newton_warm!r}")
         if self.gather_weights not in ("reference", "cic"):
             raise ValueError(f"unknown gather_weights {self.gather_weights!r}")
-        if self.newton_backend not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown newton_backend {self.newton_backend!r}")
         if self.pusher not in ("boris", "gc"):
             raise ValueError(f"unknown pusher {self.pusher!r}")
         if self.gc_eom not in ("physical", "reference"):
             raise ValueError(f"unknown gc_eom {self.gc_eom!r}")
         if self.pusher == "gc" and not any(v != 0.0 for v in self.b):
             raise ValueError("pusher='gc' requires a nonzero magnetic field")
-        if self.pusher == "gc" and self.backend == "fused":
-            raise ValueError(
-                "backend='fused' does not support pusher='gc' (the GC path "
-                "mixes per-particle RK4/Boris by mode — use backend='auto' "
-                "or 'composed')")
-        if self.source_sampler == "pallas" and self.reactivate == "flux":
-            raise ValueError(
-                "source_sampler='pallas' does not implement the flux-source "
-                "CDF table draw — use 'auto' (falls back to threefry here), "
-                "'threefry', or 'hash'")
         if self.react_batch < 0:
             raise ValueError("react_batch must be >= 0")
         if self.react_timing not in ("reference", "immediate"):
             raise ValueError(f"unknown react_timing {self.react_timing!r}")
-        if self.carried_deposit not in ("auto", "on", "off"):
-            raise ValueError(
-                f"unknown carried_deposit {self.carried_deposit!r}")
-        if self.carried_deposit == "on":
-            if self.pusher != "boris":
-                raise ValueError("carried_deposit requires pusher='boris' "
-                                 "(the GC path composes per-particle modes)")
-            if self.reactivate != "none" and self.react_batch <= 0:
-                raise ValueError(
-                    "carried_deposit needs react_batch > 0 with "
-                    "re-activation — the batch table bounds the "
-                    "re-activation patch exactly")
         if self.axis_name is not None:
             if (self.react_batch == 0 and self.reactivate != "none"
-                    and self.source_sampler in ("threefry", "pallas")):
+                    and self.source_sampler == "threefry"):
                 raise ValueError(
                     "data-parallel full-capacity re-activation needs "
                     "source_sampler='hash' (slot-offset counters give "
@@ -327,17 +247,14 @@ class MagnetizedConfig:
                 )
 
 
-class MagnetizedState(struct.PyTreeNode):
+class MagnetizedState(PyTreeNode):
     # Coordinate meaning per particle follows ``mode`` (the reference's
     # Particle.mode, pygcpic.py:101): mode 0 — (p, yz) is the particle
     # position, v the 6D velocity; mode 1 (cfg.pusher='gc') — (p, yz) is
     # the GUIDING CENTER and v packs [v_par, mu, 0] (the reference's
     # r-vector layout in GC coordinates, pygcpic.py:547-549).
-    # Lateral positions / velocities are flat (n,) leaves (round 3): the
-    # (n, 2)/(n, 3) stacked forms cost slice/stack materializations at the
-    # Pallas-call boundaries and cross-layout reduces (~0.25 ms/step at
-    # 1e6 in the device profile); the ``yz``/``v`` properties provide the
-    # stacked diagnostic views.
+    # Lateral positions / velocities are flat (n,) leaves; the ``yz``/``v``
+    # properties provide the stacked diagnostic views.
     p: jax.Array  # (n,) x in grid coordinates
     y: jax.Array  # (n,) lateral position [m]
     z: jax.Array  # (n,) lateral position [m]
@@ -355,12 +272,6 @@ class MagnetizedState(struct.PyTreeNode):
     mode: jax.Array  # (n,) int32 {0: 6D, 1: guiding-center} (pygcpic.py:101)
     phi: jax.Array  # (ng,) potential [V]
     phi_prev: jax.Array  # (ng,) previous-step potential (Newton warm start)
-    # carried GLOBAL deposits (cfg.carried_deposit='on' only; zeros
-    # otherwise): the rho / number density that open the next step,
-    # maintained by the push kernel + mutation patches. Global (psum'd)
-    # so the leaves stay replicated under data-parallel sharding.
-    rho: jax.Array  # (ng,)
-    n: jax.Array  # (ng,)
     n0: jax.Array  # () Boltzmann electron reference density
     p_old: jax.Array  # () previous trapz(exp(phi/Te)) (pygcpic.py:891)
     added: jax.Array  # () particle-creation ledger (pygcpic.py:1111-1117)
@@ -407,11 +318,6 @@ class StepMetrics(NamedTuple):
     impacts: jax.Array
     n_impacts: jax.Array
     n_escaped: jax.Array  # BCA products deactivated mid-domain
-    # carried-deposit bookkeeping (carried_deposit='on' only; the carry is
-    # exact while ALL three stay 0 — see MagnetizedConfig.carried_deposit)
-    carry_clamped: jax.Array = 0
-    n_ion_suppressed: jax.Array = 0
-    n_escape_deferred: jax.Array = 0
     # per-event sheath-escape rows [vx_over_vth, species_idx, energy_eV,
     # angle_deg] + valid count (the {source,wall}_out.dat streams,
     # pygcpic.py:1529-1541); zero-size unless impact_buffer_size > 0 AND
@@ -453,25 +359,6 @@ def _gc_unpack_v(key, p, yz, v_packed, charge_state, m, cfg: MagnetizedConfig):
         jnp.asarray(cfg.b, v_packed.dtype), cs_safe, m,
     )
     return v6
-
-
-def prime_carry(state: MagnetizedState, cfg: MagnetizedConfig):
-    """(Re)compute the carried GLOBAL rho/n deposit leaves from the current
-    particles — the entry point for carried_deposit='on' at initialization
-    and checkpoint resume (the step keeps them current afterwards). Safe on
-    a fully-replicated state (runs OUTSIDE shard_map under data-parallel —
-    the leaves are global by contract)."""
-    dx = cfg.grid.dx
-    is_active = state.active == 1
-    w_rho = jnp.where(
-        is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
-    w_n = jnp.where(is_active, state.p2c / dx, 0.0)
-    rho = deposit(state.p, w_rho, cfg.grid.ng, periodic=False,
-                  method=cfg.deposit_method)
-    n = deposit(state.p, w_n, cfg.grid.ng, periodic=False,
-                method=cfg.deposit_method)
-    return state.replace(rho=rho.astype(state.phi.dtype),
-                         n=n.astype(state.phi.dtype))
 
 
 def init_state(
@@ -532,8 +419,6 @@ def init_state(
         mode=jnp.zeros((n,), jnp.int32),
         phi=jnp.zeros((grid.ng,), dtype),
         phi_prev=jnp.zeros((grid.ng,), dtype),
-        rho=jnp.zeros((grid.ng,), dtype),
-        n=jnp.zeros((grid.ng,), dtype),
         n0=jnp.asarray(0.0, dtype),
         p_old=jnp.asarray(0.0, dtype),
         added=jnp.asarray(0.0, dtype),
@@ -558,8 +443,6 @@ def init_state(
             vz=jnp.where(is_gc, v_g[:, 2], state.vz),
             mode=is_gc.astype(jnp.int32),
         )
-    if cfg.carried_deposit == "on":
-        state = prime_carry(state, cfg)
     return state
 
 
@@ -612,28 +495,6 @@ def make_inject(cfg: MagnetizedConfig):
             # engine pusher (mode 1 requires charge; ionization promotes)
             mode=jnp.where(take, 0, state.mode),
         )
-        if cfg.carried_deposit == "on":
-            # patch the carried deposits for the injected rows (their next
-            # deposit happens in the push kernel AFTER the next step's
-            # field solve consumed the carry): the i-th valid new row
-            # landed in the i-th free slot, so the patch is the valid new
-            # rows themselves, capped at the placed count
-            placed = (jnp.cumsum(valid.astype(jnp.int32)) - 1 < n_injected) \
-                & valid
-            wf = placed.astype(new_state.rho.dtype)
-            pos_new = jnp.clip(jnp.asarray(x) / dx, 0.0,
-                               float(grid.num_cells))
-            wr_new = wf * jnp.asarray(charge_state) * E_CHARGE \
-                * jnp.asarray(p2c) / dx
-            wn_new = wf * jnp.asarray(p2c) / dx
-            new_state = new_state.replace(
-                rho=new_state.rho + deposit(
-                    pos_new, wr_new, grid.ng, periodic=False,
-                    method=cfg.deposit_method),
-                n=new_state.n + deposit(
-                    pos_new, wn_new, grid.ng, periodic=False,
-                    method=cfg.deposit_method),
-            )
         return new_state, n_injected, n_new - n_injected
 
     return inject
@@ -666,9 +527,7 @@ def mirror_gather_position(p, hi):
     (pygcpic.py:343-347) expressed as a position transform: gathering with
     standard CIC weights at the cell-mirrored position
     ``2 floor(p) + 1 - p`` reproduces it exactly. Shared by both
-    magnetized engines (the Pallas Boris kernels inline the same algebra
-    under their ``swap`` flag — ops/pallas_cic.py — since jnp helpers
-    don't compose into Mosaic kernels); ``hi`` is the clamp bound in the
+    magnetized engines; ``hi`` is the clamp bound in the
     caller's coordinate frame (global ``num_cells``, or the extended-slab
     end). The intra-cell fraction is shift-invariant, so applying this in
     a local frame offset by an integer equals the global transform."""
@@ -687,15 +546,12 @@ def iead_update(iead, species_idx, m, vdx, vdy, vdz, hit, *, bins,
     semantics (pygcpic.py:1259: range=[[0, emax], [0, amax]] discards
     values beyond the range rather than clipping them into edge bins);
     values exactly at the upper edge land in the last bin, as numpy's do.
-    Velocities arrive as flat components (the stacked (n, 3) form cost
-    a cross-layout multiply-reduce, ~0.1 ms/step at 1e6).
+    Velocities arrive as flat components.
 
     ``allreduce`` sums the per-shard update before it lands on the
     replicated histogram state (identity on a single device). Returns
     iead + allreduce(update). The histogram runs as a width-0 tent
-    deposit over EVERY particle (the XLA scatter serializes and dominated
-    the whole step, 8.8 ms at 1e6 on v5e; a packed-buffer fast path was
-    measured +5.8 ms/step and deleted round 4 — PERF.md round 3g).
+    deposit over every particle (ops.cic.histogram_add).
     """
     ne, na = bins
     energy_ev = (0.5 * m * (vdx * vdx + vdy * vdy + vdz * vdz)
@@ -767,22 +623,7 @@ def make_step(cfg: MagnetizedConfig):
             deposit_method=cfg.deposit_method, allreduce=_allreduce,
         )
 
-    def _use_fused(n):
-        if cfg.pusher == "gc":
-            # the GC path mixes per-particle RK4/Boris by mode — op-composed
-            return False
-        if cfg.backend == "fused":
-            return True
-        if cfg.backend == "composed":
-            return False
-        if cfg.backend != "auto":
-            raise ValueError(f"unknown backend {cfg.backend!r}")
-        return jax.default_backend() == "tpu" and n >= 8192
-
     ax = cfg.axis_name
-    # 'auto' stays off until the TPU A/B + physics re-verification land
-    # (flip here when they do — PERF.md round 3c)
-    carried = cfg.carried_deposit == "on"
 
     def _allreduce(x):
         """Sum partial deposits / counters across particle shards (no-op
@@ -798,40 +639,22 @@ def make_step(cfg: MagnetizedConfig):
             # shard-count-invariant instead.
             k_ion = jax.random.fold_in(k_ion, lax.axis_index(ax))
             k_gyro = jax.random.fold_in(k_gyro, lax.axis_index(ax))
-        fused = _use_fused(state.p.shape[0])
-        carry_clamped = jnp.asarray(0, jnp.int32)
-        n_ion_suppressed = jnp.asarray(0, jnp.int32)
         is_active = state.active == 1
         w_rho = jnp.where(
             is_active, state.charge_state * E_CHARGE * state.p2c / dx, 0.0
         )
         w_n = jnp.where(is_active, state.p2c / dx, 0.0)
-        if carried:
-            # the previous step's push kernel + patches maintained the
-            # GLOBAL deposits in state (prime_carry seeds step 0)
-            rho, n_dens = state.rho, state.n
-        elif fused:
-            from ..ops.pallas_cic import deposit2_pallas
-
-            rho, n_dens = deposit2_pallas(state.p, w_rho, w_n, ng,
-                                          periodic=False)
-            rho = _allreduce(rho)
-            n_dens = _allreduce(n_dens)
-        else:
-            rho = deposit(state.p, w_rho, ng, periodic=False,
-                          method=cfg.deposit_method)
-            n_dens = deposit(state.p, w_n, ng, periodic=False,
-                             method=cfg.deposit_method)
-            rho = _allreduce(rho)
-            n_dens = _allreduce(n_dens)
+        rho = _allreduce(deposit(state.p, w_rho, ng, periodic=False,
+                                 method=cfg.deposit_method))
+        n_dens = _allreduce(deposit(state.p, w_n, ng, periodic=False,
+                                    method=cfg.deposit_method))
         n0, p_old = _boltzmann_weight(state, rho, n_dens)
         added = jnp.zeros_like(state.added)  # reset (pygcpic.py:1215,1492)
 
         if cfg.smooth_rho:
             rho = smooth_bounded(rho)
 
-        # one warm start + backend gate for BOTH wall conditions (rho and
-        # n_dens always share a dtype — the deposit weights derive from it)
+        # one warm start for BOTH wall conditions
         phi_warm = (
             2.0 * state.phi - state.phi_prev
             if cfg.newton_warm == "extrapolate" else state.phi
@@ -847,39 +670,17 @@ def make_step(cfg: MagnetizedConfig):
             # branch keeps the shifted seed: the reference itself
             # warm-starts that Newton from self.phi (pygcpic.py:1083).
             phi_warm = phi_warm - phi_warm[0]
-        use_pallas_newton = (
-            cfg.newton_backend == "pallas"
-            or (cfg.newton_backend == "auto"
-                and jax.default_backend() == "tpu")
-        ) and rho.dtype == jnp.float32
         if dirichlet_neumann:
-            if use_pallas_newton:
-                from ..ops.pallas_newton import boltzmann_dn_pallas
-
-                res = boltzmann_dn_pallas(
-                    n_dens, n0, cfg.te, dx, phi_warm,
-                    tol=1e-3, maxiter=100,
-                )
-            else:
-                res = solve_boltzmann_dirichlet_neumann(
-                    n_dens, n0, cfg.te, dx, phi_warm,
-                    tol=1e-3, maxiter=100,
-                )
+            res = solve_boltzmann_dirichlet_neumann(
+                n_dens, n0, cfg.te, dx, phi_warm,
+                tol=1e-3, maxiter=100,
+            )
         else:
-            if use_pallas_newton:
-                from ..ops.pallas_newton import boltzmann_dirichlet_pallas
-
-                res = boltzmann_dirichlet_pallas(
-                    rho, n0, cfg.te, dx,
-                    tol=cfg.newton_tol, maxiter=cfg.newton_maxiter,
-                    phi0=phi_warm,
-                )
-            else:
-                res = solve_boltzmann_dirichlet(
-                    rho, n0, cfg.te, dx,
-                    tol=cfg.newton_tol, maxiter=cfg.newton_maxiter,
-                    phi0=phi_warm,
-                )
+            res = solve_boltzmann_dirichlet(
+                rho, n0, cfg.te, dx,
+                tol=cfg.newton_tol, maxiter=cfg.newton_maxiter,
+                phi0=phi_warm,
+            )
         phi = res.phi
         e_field = grad_neg_bounded(phi, dx)
 
@@ -927,36 +728,6 @@ def make_step(cfg: MagnetizedConfig):
                             jnp.where(is_active, v1_b[:, 1], state.vy))
             vz1 = jnp.where(is_gc, jnp.zeros_like(vpar1),
                             jnp.where(is_active, v1_b[:, 2], state.vz))
-        elif carried:
-            # fused push + next-step deposit (one sweep; wall hits zeroed
-            # in-kernel, post-push mutations patched below)
-            from ..ops.pallas_cic import boris_gather_push_deposit_pallas
-
-            const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
-            act_f = is_active.astype(state.p.dtype)
-            (p1, vx1, vy1, vz1, rho_carry, n_carry,
-             carry_clamped) = boris_gather_push_deposit_pallas(
-                e_field, state.p,
-                state.vx, state.vy, state.vz,
-                const, act_f, w_rho, w_n,
-                b=cfg.b, dt=dt, dt_dx=dt / dx, pad=cfg.carried_pad,
-                swap_weights=swap_gather,
-            )
-            y1 = jnp.where(is_active, state.y + dt * vy1, state.y)
-            z1 = jnp.where(is_active, state.z + dt * vz1, state.z)
-        elif fused:
-            from ..ops.pallas_cic import boris_gather_push_pallas
-
-            const = (0.5 * dt * E_CHARGE) * state.charge_state / state.m
-            act_f = is_active.astype(state.p.dtype)
-            p1, vx1, vy1, vz1 = boris_gather_push_pallas(
-                e_field, state.p,
-                state.vx, state.vy, state.vz,
-                const, act_f, b=cfg.b, dt=dt, dt_dx=dt / dx,
-                swap_weights=swap_gather,
-            )
-            y1 = jnp.where(is_active, state.y + dt * vy1, state.y)
-            z1 = jnp.where(is_active, state.z + dt * vz1, state.z)
         else:
             e_p = jnp.where(
                 is_active,
@@ -1029,7 +800,6 @@ def make_step(cfg: MagnetizedConfig):
         # and recorded in the escape energy-angle histograms.
         iead_out = state.iead_out
         n_escaped = jnp.asarray(0, jnp.int32)
-        n_escape_deferred = jnp.asarray(0, jnp.int32)
         escapes = jnp.zeros((0, 4), jnp.float32)
         n_escape_rows = jnp.asarray(0, jnp.int32)
         if cfg.bca_escape:
@@ -1039,21 +809,6 @@ def make_step(cfg: MagnetizedConfig):
                 (active == 1) & (state.from_wall == 1)
                 & (p1 > mid_lo) & (p1 < mid_hi)
             )
-            if carried:
-                # escaped rows were live at push time (mid-domain), so the
-                # kernel deposited them — subtract their tents via a packed
-                # patch. Beyond the cap the removal DEFERS (the row stays
-                # active; still mid-domain, it escapes again next step) —
-                # counted, never a silent carry corruption.
-                from ..utils import compact_rows, pack_rows
-
-                rank_e = compact_rows(escaped)
-                keep_e = escaped & (rank_e < cfg.carried_ion_cap)
-                n_escape_deferred = jnp.sum(
-                    (escaped & ~keep_e).astype(jnp.int32))
-                escaped = keep_e
-                (esc_pos, esc_wr, esc_wn), _, _ = pack_rows(
-                    escaped, [p1, w_rho, w_n], cfg.carried_ion_cap)
             active = jnp.where(escaped, 0, active)
             if cfg.iead_energy_max > 0.0:
                 iead_out = _iead_accumulate(
@@ -1086,24 +841,6 @@ def make_step(cfg: MagnetizedConfig):
                 rates, dx, dt, still_active,
                 max_charge_state=cfg.max_charge_state,
             )
-            if carried:
-                # the carry patches at most carried_ion_cap charge deltas
-                # per step; events beyond it revert entirely (no silent
-                # charge misplacement) and are counted — size the cap so
-                # this never binds (it's ~1000x the reference rates)
-                from ..utils import compact_rows, pack_rows
-
-                rank_i = compact_rows(ionized)
-                keep = ionized & (rank_i < cfg.carried_ion_cap)
-                suppressed = ionized & ~keep
-                n_ion_suppressed = jnp.sum(suppressed.astype(jnp.int32))
-                charge_state = jnp.where(
-                    suppressed, charge_state - 1.0, charge_state)
-                added_ion = added_ion - 2.0 * jnp.sum(
-                    jnp.where(suppressed, state.p2c, 0.0)).astype(added.dtype)
-                ionized = keep
-                (ion_pos, ion_p2c), _, _ = pack_rows(
-                    keep, [p1, state.p2c], cfg.carried_ion_cap)
             added = added + added_ion
             n_ionized = jnp.sum(ionized.astype(jnp.int32))
             if cfg.pusher == "gc":
@@ -1162,39 +899,10 @@ def make_step(cfg: MagnetizedConfig):
             if src_sampler == "auto":
                 # hash: the only shard-invariant full-capacity draw
                 # (required under dp at react_batch=0; rank-keyed capped
-                # batches are shard-invariant for every sampler);
-                # pallas: zero-input hardware-PRNG kernel (fastest on TPU,
-                # ops.pallas_rng.source_batch_pallas); threefry otherwise
-                if ax and not cfg.react_batch:
-                    src_sampler = "hash"
-                elif (jax.default_backend() == "tpu"
-                      and cfg.reactivate in ("source", "capped-source")):
-                    src_sampler = "pallas"
-                else:
-                    src_sampler = "threefry"
-            if src_sampler == "pallas" and cfg.reactivate == "flux":
-                # only the 'auto' resolution may fall back (flux needs the
-                # CDF table draw); an EXPLICIT 'pallas' request raises in
-                # __post_init__ rather than silently switching RNG streams
-                src_sampler = "threefry"
-            if src_sampler == "pallas":
-                from ..ops.pallas_rng import source_batch_pallas
-                from ..sources import seed_from_key as _seed
-
-                def sample_source(k, n_s, grid_s, ti_s, mass_s, vx=0.0,
-                                  components=True):
-                    vth = float(np.sqrt(K_BOLTZMANN * float(ti_s)
-                                        / float(mass_s)))
-                    length = grid_s.length
-                    x_b, bvx_, bvy_, bvz_ = source_batch_pallas(
-                        _seed(k), k, n_s, x_mu=length / 2.0,
-                        x_sigma=length / 12.0, x_wrap=length, vth=vth,
-                        vx=vx,
-                    )
-                    return {"x": x_b, "vx": bvx_, "vy": bvy_, "vz": bvz_}
-
-                sample_flux = None  # unreachable (flux falls back above)
-            elif src_sampler == "hash":
+                # batches are shard-invariant for every sampler)
+                src_sampler = ("hash" if ax and not cfg.react_batch
+                               else "threefry")
+            if src_sampler == "hash":
                 sample_source = sources.sample_source_6d_hash
                 sample_flux = sources.sample_flux_6d_hash
                 if ax and not cfg.react_batch:
@@ -1244,9 +952,8 @@ def make_step(cfg: MagnetizedConfig):
                     # rank < deficit prefix. Applies to the react_batch=0
                     # reference-parity path only: the rank-keyed
                     # react_batch>0 draw is already documented as not
-                    # bit-compatible with the reference stream, its
-                    # carried patch relies on taken ranks being a
-                    # contiguous prefix, and the slab engine shares the
+                    # bit-compatible with the reference stream, and the
+                    # slab engine shares the
                     # deviation (migration reorders slots, so reference
                     # slot order is unrecoverable there anyway).
                     lost_now = ((state.active == 1) & (active != 1)
@@ -1304,26 +1011,6 @@ def make_step(cfg: MagnetizedConfig):
                 # (react_batch,)-sized table; cap the take set at the table
                 # size — surplus inactive slots wait for the next step
                 take = take & (rank < cfg.react_batch)
-                if carried:
-                    # re-activation patch: taken global ranks are contiguous
-                    # [start, start + n_take), so the patch is the table's
-                    # rows in that range — no pack pass needed (under dp
-                    # each shard patches its own slice; the psum over the
-                    # disjoint slices reconstructs the global patch)
-                    n_take = jnp.sum(take.astype(jnp.int32))
-                    start = before if ax else 0
-                    ridx = jnp.arange(n_draw, dtype=jnp.int32)
-                    pmask = (ridx >= start) & (ridx < start + n_take)
-                    react_pos = bx
-                    react_wr = jnp.where(
-                        pmask,
-                        float(src.charge_state) * E_CHARGE * float(src.p2c)
-                        / dx,
-                        0.0,
-                    ).astype(p1.dtype)
-                    react_wn = jnp.where(
-                        pmask, float(src.p2c) / dx, 0.0
-                    ).astype(p1.dtype)
                 idx = jnp.clip(rank, 0, cfg.react_batch - 1)
                 bx, by, bz, bvx, bvy, bvz = (
                     jnp.take(b_, idx) for b_ in (bx, by, bz, bvx, bvy, bvz)
@@ -1346,38 +1033,6 @@ def make_step(cfg: MagnetizedConfig):
             n_react = jnp.sum(take.astype(jnp.int32))
             added = added + (2.0 * src.p2c) * jnp.sum(take.astype(added.dtype))
 
-        # carried-deposit patches: ionization charge deltas + re-activated
-        # slots land on the kernel's carry; psum makes the leaves GLOBAL
-        # (replicated under dp — prime_carry/state contract)
-        if carried:
-            patch_pos, patch_wr = [], []
-            npatch_pos, npatch_wn = [], []
-            if cfg.bca_escape:
-                patch_pos.append(esc_pos)
-                patch_wr.append(-esc_wr)
-                npatch_pos.append(esc_pos)
-                npatch_wn.append(-esc_wn)
-            if cfg.ionization:
-                patch_pos.append(ion_pos)
-                patch_wr.append((E_CHARGE / dx) * ion_p2c)
-            if cfg.reactivate != "none":
-                patch_pos.append(react_pos)
-                patch_wr.append(react_wr)
-                npatch_pos.append(react_pos)
-                npatch_wn.append(react_wn)
-            if patch_pos:
-                rho_carry = rho_carry + deposit(
-                    jnp.concatenate(patch_pos), jnp.concatenate(patch_wr),
-                    ng, periodic=False, method=cfg.deposit_method)
-            if npatch_pos:
-                n_carry = n_carry + deposit(
-                    jnp.concatenate(npatch_pos), jnp.concatenate(npatch_wn),
-                    ng, periodic=False, method=cfg.deposit_method)
-            rho_carry = _allreduce(rho_carry)
-            n_carry = _allreduce(n_carry)
-        else:
-            rho_carry, n_carry = state.rho, state.n
-
         # global ledgers/counters under dp (the n0 particle-balance update
         # next step needs the GLOBAL added-particle rate, pygcpic.py:889-904)
         added = _allreduce(added)
@@ -1396,9 +1051,6 @@ def make_step(cfg: MagnetizedConfig):
             impacts=impacts,
             n_impacts=n_impacts,
             n_escaped=_allreduce(n_escaped),
-            carry_clamped=_allreduce(carry_clamped),
-            n_ion_suppressed=_allreduce(n_ion_suppressed),
-            n_escape_deferred=_allreduce(n_escape_deferred),
             escapes=escapes,
             n_escape_rows=n_escape_rows,
         )
@@ -1407,7 +1059,7 @@ def make_step(cfg: MagnetizedConfig):
             charge_state=charge_state,
             p2c=p2c_arr, species_idx=sp_arr, t=t1, active=active,
             at_wall=at_wall, from_wall=fw, mode=mode, phi=phi,
-            phi_prev=state.phi, rho=rho_carry, n=n_carry,
+            phi_prev=state.phi,
             n0=n0, p_old=p_old, added=added, rng=key, iead=iead,
             iead_out=iead_out, step=state.step + 1,
         )

@@ -1,6 +1,6 @@
 """Bounded two-species 1d3v implicit sheath engine.
 
-TPU rebuild of the gen-2 Dirichlet-Dirichlet ("DD" = absorbing walls on both
+JAX rebuild of the gen-2 Dirichlet-Dirichlet ("DD" = absorbing walls on both
 ends, *not* domain decomposition — SURVEY.md naming trap) plasma-sheath
 driver ``main_i`` (PIC_L_DD.py:316-644):
 
@@ -45,9 +45,9 @@ from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import lax
 
+from ..utils.pytree import PyTreeNode
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import (
@@ -77,23 +77,18 @@ class SheathConfig:
     # ~2.4e-3/component, so the residual plateaus around 5e-4 and the loop
     # burns iterations to maxiter making round-off-sized non-progress).
     # The loop also exits once r < tol_floor * eps * ||es||_2 (eps of the
-    # WORKING dtype — f32 eps on TPU, f64 eps under x64 where the absolute
+    # WORKING dtype — f32 eps by default, f64 eps under x64 where the absolute
     # test is attainable and the floor correctly recedes to ~1e-11) — the
     # same fixed point to machine precision, measured plateau ~0.2x
     # eps*||es||. 0 restores the reference's pure-absolute test.
-    # Measured at the 1e6 bench config (v5e, warm state): 0 -> 13.6 mean
-    # iterations grinding round-off, 0.25 -> 6.5, 0.5 -> 4.9 at mean exit
-    # residual 5e-2 V/m on a ~2e4 V/m field (relative ~3e-6).
+    # At the 1e6 bench config (warm state): 0 -> 13.6 mean iterations
+    # grinding round-off, 0.25 -> 6.5, 0.5 -> 4.9 at mean exit residual
+    # 5e-2 V/m on a ~2e4 V/m field (relative ~3e-6); iteration counts do
+    # not depend on the device.
     tol_floor: float = 0.5
     maxiter: int = 20  # PIC_L_DD.py:318
     gamma: float = 0.0  # thermostat resampling probability (PIC_L_DD.py:331)
     deposit_method: str = "auto"
-    # 'fused' runs each Picard inner pass as one Pallas sweep (gather + CN +
-    # wall check + current deposit with the wall surface-charge terms folded
-    # into the same deposit); 'auto' = fused on TPU at scale. Like the
-    # implicit engine's fused path, (x1, u1, j1) come from a finalize pass
-    # over the converged field rather than the last iterate.
-    backend: str = "auto"
     # exit-velocity histogram (replaces the reference's dynamic vionout list)
     exit_hist_bins: int = 64
     exit_hist_vmax: float = 0.0  # [m/s]; 0 disables recording
@@ -109,23 +104,13 @@ class SheathConfig:
     # see ops.accel and PERF.md).
     picard_accel: str = "none"
     # Re-injection / thermostat randomness. 'threefry' = jax.random streams
-    # (the 'auto' default everywhere — fastest measured); 'pallas' = one
-    # fused VMEM sweep drawing from the TPU hardware PRNG (ops.pallas_rng;
-    # measured neutral at 1e6 on v5e — kernel transcendentals + operand
-    # materialization offset the saved threefry chain; off-TPU the same
-    # kernel consumes threefry bits); 'hash' = counter-based murmur3 +
-    # Box-Muller (sources.hash_uniforms — identical distribution but
-    # SLOWER than threefry on TPU: the VPU has no native u32 multiply,
-    # +0.25 ms/step measured; kept for draw-compat with the magnetized
-    # engine's shard-invariant sampler). All samplers: same distributions,
-    # different draws.
+    # (the 'auto' choice on one device); 'hash' = counter-based murmur3 +
+    # Box-Muller (sources.hash_uniforms — identical distribution, and
+    # shard-count invariant, so 'auto' picks it under data-parallel
+    # sharding). All samplers: same distributions, different draws.
+    # Full-capacity draws are the reference semantics: every absorbed
+    # particle re-injects at step start (PIC_L_DD.py:429-450).
     rng_sampler: str = "auto"
-    # (A reinject_batch>0 rank-keyed capped re-injection draw existed
-    # through round 3 — measured 27.25 vs 0.93 ms/step at 1e6 on v5e (the
-    # batch-table gather is TPU-hostile) and deleted round 4; PERF.md
-    # round 3g keeps the record. Full-capacity draws ARE the reference
-    # semantics: every absorbed particle re-injects at step start,
-    # PIC_L_DD.py:429-450.)
     # Data-parallel particle sharding over a 1D mesh axis (the magnetized
     # engine's pattern — wrap make_step with parallel.make_data_parallel_
     # step): per-shard current deposits INCLUDING the wall surface-charge
@@ -157,15 +142,9 @@ class SheathConfig:
                 raise ValueError(
                     f"unknown picard_accel {self.picard_accel!r}"
                 )
-        if self.rng_sampler not in ("auto", "pallas", "hash", "threefry"):
+        if self.rng_sampler not in ("auto", "hash", "threefry"):
             raise ValueError(f"unknown rng_sampler {self.rng_sampler!r}")
         if self.axis_name is not None:
-            if self.rng_sampler == "pallas":
-                raise ValueError(
-                    "rng_sampler='pallas' is not supported under "
-                    "data-parallel sharding (hardware-PRNG draws are not "
-                    "shard-invariant); use 'hash' or 'auto'"
-                )
             if self.rng_sampler == "threefry":
                 raise ValueError(
                     "data-parallel full-capacity re-injection needs "
@@ -176,12 +155,11 @@ class SheathConfig:
                 )
 
 
-class SheathState(struct.PyTreeNode):
+class SheathState(PyTreeNode):
     p: jax.Array  # (n,) x in grid coordinates
     # velocities [m/s] as three flat (n,) leaves: (n, 3) arrays cost
-    # lane-padding relayouts and slice/stack passes on every step (the
-    # round-3 intercept trace attributed ~0.1 ms/step at 1e6 to them);
-    # the ``v`` property provides the stacked view for diagnostics
+    # slice/stack passes on every step; the ``v`` property provides the
+    # stacked view for diagnostics
     u: jax.Array  # (n,) x velocity (the only field-accelerated component)
     vy: jax.Array  # (n,)
     vz: jax.Array  # (n,)
@@ -289,13 +267,8 @@ def make_step(cfg: SheathConfig):
         )
         sampler = cfg.rng_sampler
         if sampler == "auto":
-            # measured on v5e at 1e6 (round 3, after the flat-velocity
-            # state): threefry 0.94 ms/step vs pallas 1.0 — the hardware-
-            # PRNG sweep saves the (3, n) threefry chain but pays a
-            # similar amount in kernel transcendentals + operand
-            # materialization at the pallas_call boundary; threefry wins
-            # on both backends. Under dp the full-capacity draws must be
-            # shard-invariant -> hash with slot offsets (config contract).
+            # under dp the full-capacity draws must be shard-invariant ->
+            # hash with slot offsets (config contract)
             sampler = "hash" if ax else "threefry"
         use_hash = sampler == "hash"
         if use_hash:
@@ -316,87 +289,57 @@ def make_step(cfg: SheathConfig):
         slot_off = lax.axis_index(ax) * n_slots if ax else 0
         kbt_per = jnp.where(species == 1, cfg.kbte, cfg.kbti)
 
-        if sampler == "pallas":
-            # Fused thermostat + re-injection sweep on the hardware PRNG
-            # (ops.pallas_rng): no (n, 3) random intermediate touches HBM.
-            from ..ops.pallas_rng import sheath_reinject_pallas
-            from ..sources import seed_from_key as _seed
-
-            p0, u0, vy0, vz0 = sheath_reinject_pallas(
-                _seed(k_reinj_x), k_reinj_v,
-                p0, u0, vy0, vz0,
-                active.astype(p0.dtype),
-                jnp.sqrt(kbt_per / m),
-                jnp.sqrt(cfg.kbti / m) if cfg.gamma > 0.0 else None,
-                cells=cells, gamma=cfg.gamma,
-            )
-            active = jnp.full_like(active, ACTIVE)
-        else:
-
-            def _normals3(k):
-                """Three (n,) standard-normal rows from the configured
-                sampler (rows of a (3, n) draw stay lanes-major — no
-                (n, 3) relayout)."""
-                if use_hash:
-                    z = hash_normals(seed_from_key(k), n_slots, 2,
-                                     p0.dtype.type, offset=slot_off)
-                    return z[0], z[1], z[2]
-                z = jax.random.normal(k, (3, n_slots), p0.dtype)
-                return z[0], z[1], z[2]
-
-            # --- Thermostat (PIC_L_DD.py:420-427): prob-gamma resample
-            # to Ti.
-            if cfg.gamma > 0.0:
-                u_th = (
-                    hash_uniforms(seed_from_key(k_therm_u), n_slots, 1,
-                                  p0.dtype.type, offset=slot_off)[0]
-                    if use_hash else jax.random.uniform(k_therm_u, p0.shape)
-                )
-                hit = (active == ACTIVE) & (u_th < cfg.gamma)
-                sig = jnp.sqrt(cfg.kbti / m)
-                z0, z1, z2 = _normals3(k_therm_v)
-                u0 = jnp.where(hit, z0 * sig, u0)
-                vy0 = jnp.where(hit, z1 * sig, vy0)
-                vz0 = jnp.where(hit, z2 * sig, vz0)
-
-            # --- Re-injection (PIC_L_DD.py:429-450): absorbed particles
-            # get a fresh uniform position and species-temperature
-            # Maxwellian.
-            lost = active != ACTIVE
+        def _normals3(k):
+            """Three (n,) standard-normal rows from the configured
+            sampler (rows of a (3, n) draw stay contiguous — no
+            (n, 3) relayout)."""
             if use_hash:
-                x_new = (
-                    hash_uniforms(seed_from_key(k_reinj_x), n_slots, 1,
-                                  p0.dtype.type, offset=slot_off)[0]
-                    * p0.dtype.type(cells)
-                )
-            else:
-                x_new = jax.random.uniform(k_reinj_x, p0.shape,
-                                           p0.dtype, 0.0, cells)
-            z0, z1, z2 = _normals3(k_reinj_v)
-            sig_re = jnp.sqrt(kbt_per / m)
-            p0 = jnp.where(lost, x_new, p0)
-            u0 = jnp.where(lost, z0 * sig_re, u0)
-            vy0 = jnp.where(lost, z1 * sig_re, vy0)
-            vz0 = jnp.where(lost, z2 * sig_re, vz0)
-            active = jnp.where(lost, ACTIVE, active)
+                z = hash_normals(seed_from_key(k), n_slots, 2,
+                                 p0.dtype.type, offset=slot_off)
+                return z[0], z[1], z[2]
+            z = jax.random.normal(k, (3, n_slots), p0.dtype)
+            return z[0], z[1], z[2]
+
+        # --- Thermostat (PIC_L_DD.py:420-427): prob-gamma resample
+        # to Ti.
+        if cfg.gamma > 0.0:
+            u_th = (
+                hash_uniforms(seed_from_key(k_therm_u), n_slots, 1,
+                              p0.dtype.type, offset=slot_off)[0]
+                if use_hash else jax.random.uniform(k_therm_u, p0.shape)
+            )
+            hit = (active == ACTIVE) & (u_th < cfg.gamma)
+            sig = jnp.sqrt(cfg.kbti / m)
+            z0, z1, z2 = _normals3(k_therm_v)
+            u0 = jnp.where(hit, z0 * sig, u0)
+            vy0 = jnp.where(hit, z1 * sig, vy0)
+            vz0 = jnp.where(hit, z2 * sig, vz0)
+
+        # --- Re-injection (PIC_L_DD.py:429-450): absorbed particles
+        # get a fresh uniform position and species-temperature
+        # Maxwellian.
+        lost = active != ACTIVE
+        if use_hash:
+            x_new = (
+                hash_uniforms(seed_from_key(k_reinj_x), n_slots, 1,
+                              p0.dtype.type, offset=slot_off)[0]
+                * p0.dtype.type(cells)
+            )
+        else:
+            x_new = jax.random.uniform(k_reinj_x, p0.shape,
+                                       p0.dtype, 0.0, cells)
+        z0, z1, z2 = _normals3(k_reinj_v)
+        sig_re = jnp.sqrt(kbt_per / m)
+        p0 = jnp.where(lost, x_new, p0)
+        u0 = jnp.where(lost, z0 * sig_re, u0)
+        vy0 = jnp.where(lost, z1 * sig_re, vy0)
+        vz0 = jnp.where(lost, z2 * sig_re, vz0)
+        active = jnp.where(lost, ACTIVE, active)
 
         qm = q / m
 
-        use_fused = cfg.backend == "fused" or (
-            cfg.backend == "auto"
-            and jax.default_backend() == "tpu"
-            and p0.shape[0] >= 8192
-        )
-        if cfg.backend not in ("auto", "fused", "composed"):
-            raise ValueError(f"unknown backend {cfg.backend!r}")
-
-        def _hist_update(hist, act_prev, act_new, u0_loc=None, spec_loc=None):
-            """Exit-velocity histograms from the status transition (the
-            fused kernel returns act; the binning stays outside).
-
-            The fused path passes PADDED flat views (free reshapes of the
-            blocked arrays): pad rows carry act == 0 (never ACTIVE) so they
-            record nothing.
+        def _hist_update(hist, act_prev, act_new):
+            """Exit-velocity histograms from the status transition.
 
             Edge: a particle crossing BOTH walls within one Picard iteration
             (possible only for a re-injected particle drawn exactly at a
@@ -405,11 +348,9 @@ def make_step(cfg: SheathConfig):
             LOST_LEFT — a measure-zero diagnostic difference."""
             if cfg.exit_hist_vmax <= 0.0:
                 return hist
-            u0_loc = u0 if u0_loc is None else u0_loc
-            spec_loc = species if spec_loc is None else spec_loc
             right = (act_prev == ACTIVE) & (act_new == LOST_RIGHT)
             left = (act_prev == ACTIVE) & (act_new == LOST_LEFT)
-            vout = jnp.where(right, u0_loc, jnp.where(left, -u0_loc, 0.0))
+            vout = jnp.where(right, u0, jnp.where(left, -u0, 0.0))
             rec = (right | left) & (state.step >= cfg.record_exit_after_step)
             bins = cfg.exit_hist_bins
             idx = jnp.clip(
@@ -417,7 +358,7 @@ def make_step(cfg: SheathConfig):
                  * (bins / (2.0 * cfg.exit_hist_vmax))).astype(jnp.int32),
                 0, bins - 1,
             )
-            flat = jnp.clip(spec_loc - 1, 0, 1) * bins + idx
+            flat = jnp.clip(species - 1, 0, 1) * bins + idx
             upd = histogram_add(
                 flat, jnp.where(rec, 1.0, 0.0).astype(hist.dtype),
                 2 * bins, method=cfg.deposit_method,
@@ -497,71 +438,13 @@ def make_step(cfg: SheathConfig):
             es_next, aux = _mix(es, eh, k, aux)
             return es_next, xh, (x1, u1), (e1, j1), act, hist, aux, r, k + 1
 
-        if use_fused:
-            from ..ops.pallas_cic import (
-                block_particles,
-                sheath_finalize_pallas,
-                sheath_picard_pallas,
-                unblock_particles,
-            )
-
-            wall_ratio = float(dx * dx / dt)
-            w_arr = q * (cfg.p2c / dx)
-            # Block once per step; the loop carries (xh, act) in the
-            # kernels' layout — no pad/slice copies per Picard pass (see
-            # engines.implicit.step_fused). The histogram update runs on
-            # padded flat views (free reshapes; pad rows are never ACTIVE).
-            n = p0.shape[0]
-            act_f0 = active.astype(e0.dtype)
-            (p0_b, u0_b, qm_b, w_b, act0_b), _ = block_particles(
-                [p0, u0, qm, w_arr, act_f0])
-            (spec_b,), _ = block_particles([species])
-            u0_pad = u0_b.reshape(-1)
-            spec_pad = spec_b.reshape(-1)
-
-            def body_fused(carry):
-                es, ps, act_f, _, hist, aux, _, k = carry
-                xh, act1, jh = sheath_picard_pallas(
-                    es, ps, p0_b, u0_b, qm_b, w_b, act_f,
-                    dt=dt, dx=dx, wall_ratio=wall_ratio, n_valid=n,
-                )
-                jh = _allreduce(jh)
-                jh = jh.at[0].add(jh[1]).at[-1].add(jh[-2])
-                hist = _hist_update(hist, act_f.reshape(-1),
-                                    act1.reshape(-1), u0_pad, spec_pad)
-                e1 = e0 + (dt / EPSILON_0) * (jnp.mean(jh) - jh)
-                eh = 0.5 * (e1 + e0)
-                r = jnp.linalg.norm(es - eh)
-                es_next, aux = _mix(es, eh, k, aux)
-                return es_next, xh, act1, e1, hist, aux, r, k + 1
-
-            fcarry0 = (
-                es0, p0_b, act0_b, e0, state.exit_hist,
-                mix_init(e0, accel),
-                jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
-            )
-            es, ps, act_f, e1, exit_hist, _, r, k = lax.while_loop(
-                cond, body_fused, fcarry0
-            )
-            x1_b, u1_b, act1_b, j1 = sheath_finalize_pallas(
-                es, ps, p0_b, u0_b, qm_b, w_b, act_f,
-                dt=dt, dx=dx, wall_ratio=wall_ratio, n_valid=n,
-            )
-            j1 = _allreduce(j1)
-            j1 = j1.at[0].add(j1[1]).at[-1].add(j1[-2])
-            exit_hist = _hist_update(exit_hist, act_f.reshape(-1),
-                                     act1_b.reshape(-1), u0_pad, spec_pad)
-            x1 = unblock_particles(x1_b, n)
-            u1 = unblock_particles(u1_b, n)
-            active = unblock_particles(act1_b, n).astype(jnp.int32)
-        else:
-            carry0 = (
-                es0, p0, (p0, u0), (e0, state.j), active, state.exit_hist,
-                mix_init(e0, accel),
-                jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
-            )
-            (_, _, (x1, u1), (e1, j1), active, exit_hist, _, r,
-             k) = lax.while_loop(cond, body, carry0)
+        carry0 = (
+            es0, p0, (p0, u0), (e0, state.j), active, state.exit_hist,
+            mix_init(e0, accel),
+            jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
+        )
+        (_, _, (x1, u1), (e1, j1), active, exit_hist, _, r,
+         k) = lax.while_loop(cond, body, carry0)
 
         is_active = active == ACTIVE
         # reference dead-state quirk: absorbed particles carry zero state

@@ -14,7 +14,7 @@ Two node/cell conventions exist in the reference and both are preserved:
   ng nodes including both walls, ng - 1 cells.
 
 Positions are handled *in grid coordinates* ``p = x / dx`` throughout the
-compute path. This is a deliberate TPU-first choice: float32 then resolves
+compute path. This is a deliberate float32-first choice: float32 then resolves
 every cell to ~1e-7 of a cell width regardless of the physical domain size
 (the reference's Landau preset has L ~ 5e4 m where raw float32 SI positions
 would lose precision).

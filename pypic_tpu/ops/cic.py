@@ -1,6 +1,6 @@
 """Cloud-in-cell (CIC / linear) gather and deposit.
 
-These are the L1 grid kernels of the reference, rebuilt for TPU:
+These are the L1 grid kernels of the reference, rebuilt for JAX:
 
 * gather (grid -> particle interpolation): reference ``interpolate_p``
   (pypic.py:28-61), ``interpolateField`` (PIC_L_DD.py:32-39),
@@ -11,23 +11,22 @@ These are the L1 grid kernels of the reference, rebuilt for TPU:
   ``Grid.weight_particles_to_grid_boltzmann`` (pygcpic.py:841-905).
 
 The reference deposits with a sequential per-particle ``j[ind] += ...`` loop
-(pypic.py:130-133) — an irregular scatter with no efficient direct TPU
-lowering. Two structural reworks are provided:
+(pypic.py:130-133). Two structural reworks are provided:
 
-1. ``method='scatter'``: XLA scatter-add (``.at[].add``). Deterministic, always
-   correct; XLA:TPU lowers it to a sort-free serialized update which is fine at
-   small N and on CPU.
-2. ``method='matmul'``: the TPU-native path. Particles are processed in fixed
-   chunks; each particle's two CIC weights are expressed as a *tent function*
-   ``max(0, 1 - |p - g|)`` evaluated over a 128-lane window of grid nodes, so a
+1. ``method='scatter'``: XLA scatter-add (``.at[].add``). On a GPU XLA lowers
+   it to atomic adds, whose order (and so the last bits of the sum) varies
+   from run to run; on the CPU it is deterministic.
+2. ``method='matmul'``: particles are processed in fixed chunks; each
+   particle's two CIC weights are expressed as a *tent function*
+   ``max(0, 1 - |p - g|)`` evaluated over a 128-node window of grid nodes, so a
    chunk becomes a dense (chunk, 128) matrix and the reduction over particles
-   becomes an MXU matmul against a (chunk, K) window-selector one-hot. Windows
-   are strided by 127 so a particle's two adjacent cells never straddle a
-   window boundary. The per-window accumulator (K, 128) is folded back onto the
-   ng nodes with a tiny O(K*128) scatter.
+   becomes a matrix product against a (chunk, K) window-selector one-hot,
+   taken at HIGHEST precision. Windows are strided by 127 so a particle's two
+   adjacent cells never straddle a window boundary. The per-window
+   accumulator (K, 128) is folded back onto the ng nodes with a tiny
+   O(K*128) scatter. Its reduction order is fixed.
 
-Both methods are bit-deterministic (fixed reduction order independent of
-particle order within float addition associativity of the chosen chunking).
+``method='auto'`` asks ``pypic_tpu.platform.deposit_method``.
 
 All positions are grid coordinates p = x/dx (see pypic_tpu.grid).
 """
@@ -77,24 +76,13 @@ def gather(field, p, *, periodic: bool, method: str = "auto"):
         field: (ng,) field values on nodes.
         p: (n,) particle positions in grid coordinates.
         periodic: wrap the right neighbour node.
-        method: 'take' (XLA gather), 'pallas' (VMEM tent kernel), or 'auto'
-            (pallas on TPU at scale — XLA's dynamic gather measured ~170 ms
-            per 1e7 particles on v5e; the tent kernel is bandwidth-bound).
+        method: 'take' (XLA gather); 'auto' is the same.
 
     Returns:
         (n,) interpolated values.
     """
-    if method == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        method = (
-            "pallas"
-            if (on_tpu and p.shape[0] >= 8192 and field.shape[0] <= 100_000)
-            else "take"
-        )
-    if method == "pallas":
-        from .pallas_cic import gather_pallas
-
-        return gather_pallas(field, p, periodic=periodic)
+    if method not in ("auto", "take"):
+        raise ValueError(f"unknown gather method {method!r}")
     num_cells = field.shape[0] if periodic else field.shape[0] - 1
     idx_l, idx_r, w_l, w_r = cic_indices_weights(p, num_cells, periodic)
     return jnp.take(field, idx_l) * w_l + jnp.take(field, idx_r) * w_r
@@ -140,8 +128,10 @@ def _deposit_matmul(p, values, ng: int, periodic: bool, chunk: int):
         tent = jnp.maximum(0.0, 1.0 - jnp.abs(d[:, None] - cols[None, :]))
         m = tent * vc[:, None]  # (chunk, 128)
         sel = (k[:, None] == kids[None, :]).astype(dtype)  # (chunk, K)
+        # HIGHEST: a GPU may otherwise run the float32 product in TF32
         acc = acc + jax.lax.dot_general(
-            sel, m, (((0,), (0,)), ((), ())), preferred_element_type=dtype
+            sel, m, (((0,), (0,)), ((), ())), preferred_element_type=dtype,
+            precision=lax.Precision.HIGHEST,
         )
         return acc, None
 
@@ -165,11 +155,10 @@ def histogram_add(idx, values, nbins: int, *, method: str = "auto"):
     """Weighted histogram of integer bin indices — as a CIC deposit.
 
     A histogram is a width-0 tent deposit: with exactly-integer positions the
-    right-node CIC weight is identically zero, so routing through ``deposit``
-    gets the TPU tent-matmul/Pallas path instead of XLA's serialized scatter
-    (measured 25x at 1e6 values: 8.8 ms scatter vs ~0.35 ms deposit on v5e).
-    Used for the IEAD wall-impact histograms (pygcpic.py:1259-1262) and the
-    exit-velocity histograms (the rebuild's form of PIC_L_DD.py:495-504).
+    right-node CIC weight is identically zero, so it is a ``deposit`` with the
+    same choice of method. Used for the IEAD wall-impact histograms
+    (pygcpic.py:1259-1262) and the exit-velocity histograms (the rebuild's
+    form of PIC_L_DD.py:495-504).
 
     Args:
         idx: (n,) int bin indices, already clipped to [0, nbins - 1].
@@ -203,27 +192,17 @@ def deposit(
         values: (n,) deposit values.
         ng: number of field nodes.
         periodic: periodic node wrap vs bounded grid.
-        method: 'scatter' | 'matmul' | 'auto' (matmul on TPU for large n).
+        method: 'scatter' | 'matmul' | 'auto' (``platform.deposit_method``).
 
     Returns:
         (ng,) deposited field.
     """
     if method == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        # the Pallas tent kernel keeps a (width, ng/stride) accumulator and
-        # window view in VMEM — fine through ng ~ 1e5; beyond that fall back
-        # to the XLA matmul formulation (domain decomposition is the real
-        # answer for huge grids, pypic_tpu.parallel.domain)
-        method = (
-            "pallas" if (on_tpu and p.shape[0] >= 8192 and ng <= 100_000)
-            else ("matmul" if on_tpu and p.shape[0] >= 8192 else "scatter")
-        )
+        from ..platform import deposit_method
+
+        method = deposit_method(p.shape[0], ng)
     if method == "scatter":
         return _deposit_scatter(p, values, ng, periodic)
     if method == "matmul":
         return _deposit_matmul(p, values, ng, periodic, chunk)
-    if method == "pallas":
-        from .pallas_cic import deposit_pallas
-
-        return deposit_pallas(p, values, ng, periodic=periodic)
     raise ValueError(f"unknown deposit method {method!r}")

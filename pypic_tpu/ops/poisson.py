@@ -6,7 +6,7 @@ The reference's L2 layer, rebuilt without scipy:
   (pypic.py:359-382 ``solve_poisson_p``, PIC_L.py:208-220). The periodic
   (1,-2,1) Laplacian is circulant, so the direct sparse solve becomes an FFT
   diagonalization — exact for the same discrete operator, O(ng log ng), and
-  fully parallel on TPU. The k=0 mode is gauge (the reference pins gauge after
+  fully parallel on an accelerator. The k=0 mode is gauge (the reference pins gauge after
   the fact by subtracting max(phi), pypic.py:553).
 * ``solve_dirichlet``: linear Dirichlet solve (pygcpic.py:987-1003) via Thomas.
 * ``solve_boltzmann_dirichlet``: Newton iteration on

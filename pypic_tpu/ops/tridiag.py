@@ -3,7 +3,7 @@
 The reference assembles dense (ng, ng) Laplacians and calls scipy sparse
 direct/iterative solvers (``sppla.spsolve`` pypic.py:379, ``sppla.inv``
 PIC_L_DD.py:139, ``sppla.bicgstab`` pygcpic.py:1046). None of those exist
-under jit on TPU; every Laplacian in this codebase is tridiagonal (possibly
+under jit; every Laplacian in this codebase is tridiagonal (possibly
 plus a rank-1 correction), so the rebuild solves them with:
 
 * ``solve_tridiag``: the Thomas algorithm as a ``lax.scan`` pair — exact,
@@ -28,9 +28,7 @@ from jax import lax
 def _affine_scan_multi(alpha, betas, reverse=False):
     """Evaluate x_i = alpha_i x_prev + beta_i via associative composition
     (a2, b2) o (a1, b1) = (a2 a1, a2 b1 + b2), x_start = 0 — for several
-    right-hand sides SHARING alpha, each carried as its own (n,) array.
-    (A single (n, k) beta with k << 128 tiles to one lane per vector
-    register on TPU; k separate (n,) arrays stay lanes-major.)"""
+    right-hand sides SHARING alpha, each carried as its own (n,) array."""
 
     def combine(left, right):
         a1, b1 = left
@@ -44,26 +42,18 @@ def _affine_scan_multi(alpha, betas, reverse=False):
 
 
 def _solve_tridiag_pscan(dl, d, du, b):
-    """Thomas recurrences with O(log n)-depth associative scans (TPU path).
+    """Thomas recurrences with O(log n)-depth associative scans.
 
     Forward elimination cp_i = du_i / (d_i - dl_i cp_{i-1}) is a Moebius
     transform of cp_{i-1}; composing the 2x2 homogeneous-coordinate matrices
     with per-combine max-abs normalization (cp is a projective ratio, so
     rescaling is exact) keeps the products bounded.
 
-    Layout note: the 2x2 products are carried as FOUR (n,) arrays, not an
-    (n, 2, 2) array — Mosaic tiles the trailing (2, 2) onto one (8, 128)
-    vreg corner, wasting ~99% of every lane and making the ng=600 Newton
-    inner solve the dominant cost of the whole magnetized step (measured
-    ~3x faster in this form on v5e, scratch/bench_tridiag_layout.py).
-
-    Negative result (round 3): fusing the cp and dp recurrences into ONE
-    normalized projective scan of 3x3 homogeneous matrices (two scans
-    total instead of three) measured 1.45x SLOWER on the magnetized
-    Newton loop (while-loop device time 0.35 -> 0.50 ms/step at ng=600 on
-    v5e): the 3x3 combine is ~27 mults + 9 divs per stage vs the 2x2's
-    8 + 4, and at (600,) each scan stage's op count — not the stage
-    count — sets the cost.
+    The 2x2 products are carried as four (n,) arrays rather than one
+    (n, 2, 2) array, so each combine is plain elementwise work on
+    contiguous vectors. Fusing the cp and dp recurrences into one scan of
+    3x3 matrices costs ~27 multiplies and 9 divides per combine against
+    8 + 4 here, so it is not done.
     """
     squeeze = b.ndim == 1
     a = dl.at[0].set(0.0)
@@ -110,19 +100,22 @@ def solve_tridiag(dl, d, du, b, method: str = "auto"):
         d: (n,) main diagonal.
         du: (n,) super-diagonal, du[-1] unused.
         b: (n,) or (n, k) right-hand side(s).
-        method: 'thomas' (sequential lax.scan — exact, but each scan step
-            costs ~1 us on TPU, so an ng=600 solve inside a Newton loop
-            dominates the whole engine step), 'pscan' (the same recurrences
+        method: 'thomas' (sequential lax.scan — exact, but one dependent
+            step per row, so an ng=600 solve inside a Newton loop is a long
+            serial chain), 'pscan' (the same recurrences
             evaluated with O(log n)-depth ``lax.associative_scan``: the
             cp recurrence is a Moebius transform composed as normalized
             projective 2x2 products; the dp and back-substitution
-            recurrences are affine compositions), or 'auto' (pscan on TPU).
+            recurrences are affine compositions), or 'auto'
+            (``platform.tridiag_method``).
 
     Returns:
         x with the same shape as b.
     """
     if method == "auto":
-        method = "pscan" if jax.default_backend() == "tpu" else "thomas"
+        from ..platform import tridiag_method
+
+        method = tridiag_method(d.shape[0])
     if method == "pscan":
         return _solve_tridiag_pscan(dl, d, du, b)
     squeeze = b.ndim == 1

@@ -3,7 +3,7 @@ decomposition.
 
 The reference is entirely single-process (SURVEY.md §2.6 — no MPI/NCCL/
 threading beyond numba flags); this package is the new capability layer:
-JAX collectives over ICI replace the nonexistent comm backend.
+JAX collectives (NCCL on GPUs) replace the nonexistent comm backend.
 """
 
 from .dataparallel import make_data_parallel_step, shard_state  # noqa: F401

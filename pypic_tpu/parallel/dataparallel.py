@@ -3,12 +3,12 @@
 The natural first decomposition for 1D PIC: particle arrays shard over the
 mesh axis; the grid (Ng = 40-800 everywhere in the reference, pypic.py:851,
 pygcpic.py:1973) is replicated. Per shard, gather/push are purely local;
-deposits produce partial grids that one ``psum`` over ICI reduces, after
+deposits produce partial grids that one ``psum`` across the devices reduces, after
 which the (replicated) field solve and Picard/Newton control flow proceed
 bitwise identically on every device — so the while_loop trip counts agree
 across shards by construction.
 
-This is the TPU-native equivalent of the communication layer the reference
+This is the JAX equivalent of the communication layer the reference
 never had (SURVEY.md §2.6): the engines already emit ``lax.psum`` on their
 deposits when ``cfg.axis_name`` is set; this module wraps the step in
 ``shard_map`` with the matching partitioning.

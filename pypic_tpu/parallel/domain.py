@@ -36,10 +36,10 @@ from typing import NamedTuple, Sequence
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..utils.pytree import PyTreeNode
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import deposit, gather, grad_periodic, solve_periodic_neutralized
@@ -71,24 +71,6 @@ class DomainConfig:
     field_solve: str = "replicated"
     axis_name: str = "slabs"
     deposit_method: str = "auto"
-    # 'fused' runs gather + leapfrog + wrap as ONE Pallas sweep
-    # (ops.pallas_cic.leapfrog_gather_push_pallas — the replicated global
-    # field is exactly the kernel's periodic window contract), cutting the
-    # per-step particle passes from 3 to 2; 'auto' = fused on TPU where it
-    # applies (replicated solve, on-owner positions — superstep micro-steps
-    # k >= 2 carry raw unwrapped positions the kernel's in-kernel wrap
-    # would destroy, so they stay composed), 'composed' = separate ops.
-    push_backend: str = "auto"
-    # 'on' carries rho in the state and runs the WHOLE particle cycle as
-    # ONE sweep (explicit_domain_cycle_pallas: gather + leapfrog + deposit
-    # of p1 onto the halo-extended slab — the rho that opens the NEXT
-    # step's solve rides this step's push, the domain analog of the
-    # single-device one-kernel cycle). Requires field_solve='replicated',
-    # per-step migration, and halo >= the one-step excursion (outrunners
-    # clamp + count into n_halo_clamped). Caveat: particles dropped by
-    # migration overflow were already deposited for the next step — rho is
-    # exact only while n_dropped stays 0 (counted, never silent).
-    carried_rho: str = "off"
 
     def __post_init__(self):
         object.__setattr__(self, "dt", float(self.dt))
@@ -102,19 +84,6 @@ class DomainConfig:
                 f"halo={self.halo} must be in [0, cells_per_shard-1] "
                 f"(cells_per_shard={self.cells_per_shard})"
             )
-        if self.carried_rho not in ("off", "on"):
-            raise ValueError(f"unknown carried_rho {self.carried_rho!r}")
-        if self.carried_rho == "on":
-            if self.field_solve != "replicated":
-                raise ValueError(
-                    "carried_rho='on' requires field_solve='replicated'"
-                )
-            if self.halo < 1:
-                raise ValueError(
-                    "carried_rho='on' deposits POST-push positions: halo "
-                    "must cover the one-step excursion (halo >= 1; size "
-                    "to v_max * dt / dx)"
-                )
 
     @property
     def cells_per_shard(self) -> int:
@@ -212,9 +181,8 @@ def migrate(
     d_tot = num_shards
     if d_tot == 1:
         # dest_of is identically this shard: migration is a no-op by
-        # construction. Skip its full-array routing scans — they cost
-        # ~2.6 ms/step at 1e8 on v5e with nothing to route (PERF.md
-        # domain item 5) — and return exact zero counts.
+        # construction. Skip its full-array routing scans and return exact
+        # zero counts.
         zero = jnp.asarray(0, jnp.int32)
         return list(fields), alive, zero, zero
     perm_r, perm_l = ring_perms(d_tot, periodic)
@@ -291,7 +259,7 @@ def migrate(
 # ---------------------------------------------------------------------------
 
 
-class DomainState(struct.PyTreeNode):
+class DomainState(PyTreeNode):
     """Per-shard fixed-capacity particles; global grid-coordinate positions."""
 
     p: jax.Array  # (num_shards*capacity,) global grid coords (sharded dim 0)
@@ -300,10 +268,6 @@ class DomainState(struct.PyTreeNode):
     q: jax.Array  # () charge (single species)
     m: jax.Array  # ()
     step: jax.Array  # () int32
-    # (ng,) slab-sharded carried charge deposit: meaningful (and re-written
-    # every step from the in-kernel deposit of p1) only under
-    # carried_rho='on'; primed from the initial positions either way
-    rho: jax.Array
 
 
 class StepMetrics(NamedTuple):
@@ -326,14 +290,6 @@ def distribute_by_slab(arrays, x, cfg, capacity_factor: float = 1.5):
     owner = np.clip(cell // cfg.cells_per_shard, 0, cfg.num_shards - 1)
     counts = np.bincount(owner, minlength=cfg.num_shards)
     capacity = int(np.ceil(counts.max() * capacity_factor))
-    # Align capacity to the Pallas particle block when large so the fused
-    # sweeps' pad path is a no-op (a misaligned loop-carried array costs a
-    # concat + slice copy per pass — measured ~4 ms/pass at 1e8 on v5e);
-    # lane-align when small (keeps tiny test configs tiny).
-    from ..ops.pallas_cic import _DEFAULT_BLOCK
-
-    align = _DEFAULT_BLOCK if capacity >= 8 * _DEFAULT_BLOCK else 128
-    capacity = -(-capacity // align) * align
     n_s = cfg.num_shards
     outs = []
     for a in arrays:
@@ -350,32 +306,6 @@ def distribute_by_slab(arrays, x, cfg, capacity_factor: float = 1.5):
             out[dd, :k] = np.asarray(a)[sel]
         alive[dd, :k] = True
     return outs, alive, capacity
-
-
-def host_rho(p, w, ng: int) -> np.ndarray:
-    """Host-side periodic CIC deposit (tent weights, pypic.py:138-183
-    semantics) — primes the carried rho leaf from initial/restored
-    positions."""
-    p = np.mod(np.asarray(p, np.float64), ng)
-    w = np.broadcast_to(np.asarray(w, np.float64), p.shape)
-    i0 = np.floor(p).astype(np.int64)
-    fr = p - i0
-    # bincount streams at memory bandwidth; np.add.at is ~10x slower at the
-    # bench's 1e8-particle prime (identical f64 result — both sum per-bin)
-    rho = np.bincount(i0 % ng, weights=w * (1.0 - fr), minlength=ng)
-    rho += np.bincount((i0 + 1) % ng, weights=w * fr, minlength=ng)
-    return rho.astype(np.float32)
-
-
-def prime_rho(state: DomainState, cfg: DomainConfig) -> DomainState:
-    """Recompute the carried rho leaf from the state's own (host) positions
-    — for resuming carried_rho='on' runs from checkpoints written before
-    the leaf existed (the CLI's legacy-refresh gate)."""
-    alive = np.asarray(state.alive)
-    w = float(np.asarray(state.q)) * cfg.p2c / cfg.grid.dx
-    return state.replace(rho=jnp.asarray(host_rho(
-        np.asarray(state.p)[alive], w, cfg.grid.ng
-    )))
 
 
 def init_state(x, v, q, m, cfg: DomainConfig, capacity_factor: float = 1.5):
@@ -397,9 +327,6 @@ def init_state(x, v, q, m, cfg: DomainConfig, capacity_factor: float = 1.5):
         q=jnp.asarray(q, jnp.float32),
         m=jnp.asarray(m, jnp.float32),
         step=jnp.asarray(0, jnp.int32),
-        rho=jnp.asarray(host_rho(
-            p, float(q) * cfg.p2c / cfg.grid.dx, cfg.grid.ng
-        )),
     )
 
 
@@ -479,31 +406,6 @@ def _make_stepper(cfg: DomainConfig, mesh: Mesh, k_mig):
     # already wrapped — skip the compare/reduce/psum and the mod there
     # (a returned metric would force XLA to emit them at 1e8 every step).
     excursions = k_mig is not None and k_mig > 1
-    if cfg.push_backend not in ("auto", "fused", "composed"):
-        raise ValueError(f"unknown push_backend {cfg.push_backend!r}")
-    # the fused kernel's contract is a periodic global field + wrapped
-    # positions + in-kernel wrap: exactly the replicated per-step/k=1 case.
-    # Superstep micro-steps carry RAW positions (the in-kernel wrap would
-    # destroy the slab frame at the seam) and the distributed solve gathers
-    # from a bounded ext field — both stay composed.
-    applies = cfg.field_solve == "replicated" and not excursions
-    if cfg.push_backend == "fused" and not applies:
-        raise ValueError(
-            "push_backend='fused' requires field_solve='replicated' and "
-            "per-step migration (make_step or make_superstep(k=1))"
-        )
-    fuse_push = cfg.push_backend == "fused" or (
-        cfg.push_backend == "auto" and applies
-        and jax.default_backend() == "tpu"
-    )
-    carried = cfg.carried_rho == "on"
-    if carried and excursions:
-        raise ValueError(
-            "carried_rho='on' composes with per-step migration only "
-            "(make_step or make_superstep(k=1)); superstep micro-steps "
-            "carry raw positions outside the cycle kernel's wrap contract"
-        )
-
     def local_step(state: DomainState):
         d = lax.axis_index(ax)
         alive = state.alive
@@ -557,22 +459,11 @@ def _make_stepper(cfg: DomainConfig, mesh: Mesh, k_mig):
                 phi = phi - jnp.max(phi)
                 e_full = -grad_periodic(phi, dx)
                 e_energy = jnp.sum(e_full * e_full)
-                if fuse_push:
-                    # ONE Pallas sweep: windowed gather of the global field
-                    # + kick-drift-kick + in-kernel wrap (the same kernel
-                    # the single-device explicit engine uses) — saves a
-                    # full per-particle pass vs gather-then-push
-                    from ..ops.pallas_cic import leapfrog_gather_push_pallas
-
-                    p1, v1 = leapfrog_gather_push_pallas(
-                        e_full, p, v, qm=qm, dt=dt, dx=dx
-                    )
-                else:
-                    gcoord = jnp.mod(p, ng) if excursions else p
-                    e_p = jnp.where(
-                        alive, gather(e_full, gcoord, periodic=True), 0.0
-                    )
-                    p1, v1 = leapfrog_push(p, v, e_p, qm, dt, dt_dx)
+                gcoord = jnp.mod(p, ng) if excursions else p
+                e_p = jnp.where(
+                    alive, gather(e_full, gcoord, periodic=True), 0.0
+                )
+                p1, v1 = leapfrog_push(p, v, e_p, qm, dt, dt_dx)
             p1 = jnp.where(alive, p1, 0.0)
             v1 = jnp.where(alive, v1, 0.0)
             met = StepMetrics(
@@ -589,41 +480,7 @@ def _make_stepper(cfg: DomainConfig, mesh: Mesh, k_mig):
             )
             return (p1, v1), met
 
-        rho_next = state.rho
-        if carried:
-            # ONE particle sweep for the whole cycle: the solve runs from
-            # the CARRIED rho (deposited from these same positions by last
-            # step's kernel / the init prime), and the kernel deposits the
-            # pushed positions for the NEXT step while it pushes.
-            from ..ops.pallas_cic import explicit_domain_cycle_pallas
-
-            rho_full = lax.all_gather(state.rho, ax, tiled=True)
-            phi = solve_periodic_neutralized(rho_full, dx)
-            phi = phi - jnp.max(phi)
-            e_full = -grad_periodic(phi, dx)
-            p1, v1, rho_ext, ncl = explicit_domain_cycle_pallas(
-                e_full, state.p, state.v, w,
-                qm=qm, dt=dt, dx=dx, lo_shifted=lo - hw, ext_n=ext_n,
-            )
-            rho_next = halo_fold(rho_ext, c, hw, ax, perm_r, perm_l)
-            v1 = jnp.where(alive, v1, 0.0)
-            met = StepMetrics(
-                field_energy=0.5 * EPSILON_0 * dx
-                * jnp.sum(e_full * e_full),
-                kinetic_energy=lax.psum(
-                    0.5 * cfg.p2c * state.m
-                    * jnp.sum(jnp.where(alive, state.v * state.v, 0.0)),
-                    ax,
-                ),
-                n_alive=n_alive0,
-                n_migrated=zero_i,
-                n_dropped=zero_i,
-                n_halo_clamped=lax.psum(ncl, ax),
-            )
-            ms = None if k_mig is None else jax.tree.map(
-                lambda a: jnp.asarray(a)[None], met
-            )
-        elif k_mig is None or k_mig == 1:
+        if k_mig is None or k_mig == 1:
             # scan-free (a length-1 scan changes XLA fusion boundaries and
             # costs bit-exactness via FMA contraction differences)
             (p1, v1), met = micro((state.p, state.v), None)
@@ -654,13 +511,13 @@ def _make_stepper(cfg: DomainConfig, mesh: Mesh, k_mig):
                 n_alive=ms.n_alive.at[-1].set(n_alive1),
             )
         new_state = state.replace(
-            p=p2, v=v2, alive=alive1, rho=rho_next,
+            p=p2, v=v2, alive=alive1,
             step=state.step + (1 if k_mig is None else k_mig),
         )
         return new_state, metrics
 
     spec = DomainState(
-        p=P(ax), v=P(ax), alive=P(ax), q=P(), m=P(), step=P(), rho=P(ax),
+        p=P(ax), v=P(ax), alive=P(ax), q=P(), m=P(), step=P(),
     )
     # jit the shard_mapped step: an UN-jitted shard_map dispatches
     # eagerly op-by-op per shard (~1000x slower on the virtual CPU mesh);

@@ -35,13 +35,14 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..utils.pytree import PyTreeNode
 from ..constants import EPSILON_0
 from ..grid import GridSpec
 from ..ops import deposit, gather, grad_periodic, solve_periodic_neutralized
+from ..ops.picard import picard_finalize, picard_pass
 from .domain import (
     distribute_by_slab,
     halo_extend,
@@ -83,14 +84,15 @@ class DomainImplicitConfig:
     # engines.implicit.ImplicitConfig.finalize_field. The aitken Δ²
     # contraction estimate psums its two inner products over the slab
     # axis, so the slab-sharded extrapolation equals the global one.
-    # Accuracy/diagnostics option: fixed-3 + 'aitken' measured 2.60e9 on
-    # v5e but FAILS the 1e4-step drift criterion at 1e8 (PERF.md
-    # round-3j), so the headline stays maxiter=4 + 'last'.
+    # Accuracy/diagnostics option: fixed-3 + 'aitken' fails the 1e4-step
+    # drift criterion at 1e8 (PERF.md), so the headline stays maxiter=4 +
+    # 'last'.
     finalize_field: str = "last"
-    # 'fused' runs each local Picard pass as one Pallas sweep over the shard's
-    # particles (gather from the halo-extended slab + CN + extended-slab
-    # deposit — the domain form of engines.implicit's fused backend);
-    # 'composed' assembles it from individual ops; 'auto' = fused on TPU.
+    # 'fused' runs each local Picard pass as one particle sweep over the
+    # shard's particles (ops.picard on the halo-extended slab — the domain
+    # form of engines.implicit's fused backend) and honours every finalize
+    # mode; 'composed' assembles the reference's loop body from individual
+    # ops and returns its last iterate; 'auto' = fused.
     backend: str = "auto"
     # Picard iterate mixing (see engines.implicit.ImplicitConfig.picard_accel
     # and ops.accel): same fixed point and residual test; the secant inner
@@ -99,13 +101,6 @@ class DomainImplicitConfig:
     # tol=1e-30 + picard_init='extrapolate' is the conserving configuration
     # (PERF.md round-3 drift table).
     picard_accel: str = "none"
-    # Shared-window fused Picard pass (see
-    # engines.implicit.ImplicitConfig.window_share): one window
-    # decomposition + selector for gather AND deposit on the extended
-    # slab, with a free-streaming-midpoint iterate seed and the
-    # picard_clamped metric counting widened-edge clamps. 'auto'
-    # currently = separate (pending TPU A/B + drift re-verification).
-    window_share: str = "auto"
     axis_name: str = "slabs"
     deposit_method: str = "auto"
     # Data-parallel axis composed WITH the slab axis on a 2D device mesh
@@ -149,8 +144,6 @@ class DomainImplicitConfig:
                 f"finalize_field={self.finalize_field!r} would be silently "
                 "ignored; use finalize='converged' (or finalize_field='last')"
             )
-        if self.window_share not in ("auto", "shared", "separate"):
-            raise ValueError(f"unknown window_share {self.window_share!r}")
         if self.picard_accel not in ("none", "anderson", "anderson2",
                                      "damped"):
             raise ValueError(f"unknown picard_accel {self.picard_accel!r}")
@@ -160,7 +153,7 @@ class DomainImplicitConfig:
         return self.grid.ng // self.num_shards
 
 
-class DomainImplicitState(struct.PyTreeNode):
+class DomainImplicitState(PyTreeNode):
     p: jax.Array  # (S*capacity,) global grid coords, sharded
     v: jax.Array  # (S*capacity,) [m/s], sharded
     alive: jax.Array  # (S*capacity,) bool, sharded
@@ -183,9 +176,6 @@ class StepMetrics(NamedTuple):
     n_migrated: jax.Array
     n_dropped: jax.Array
     n_halo_clamped: jax.Array  # final-iterate excursions beyond the halo
-    # deposits clamped at the shared-window edge (window_share='shared'
-    # fused path only; see engines.implicit.ImplicitConfig.window_share)
-    picard_clamped: jax.Array = 0
 
 
 def init_state(
@@ -213,10 +203,9 @@ def init_state(
     if cfg.num_replicas > 1:
         # Split each slab's population round-robin over the replica axis:
         # layout (S, R, cap_r) so sharding P((slabs, dp)) puts replica r of
-        # slab s on device (s, r). Lane-align the per-replica capacity.
+        # slab s on device (s, r).
         r_tot = cfg.num_replicas
         cap_r = -(-p_out.shape[1] // r_tot)
-        cap_r = -(-cap_r // 128) * 128
 
         def split(a, fill):
             out = np.full((a.shape[0], r_tot, cap_r), fill, a.dtype)
@@ -274,10 +263,8 @@ def make_superstep(cfg: DomainImplicitConfig, mesh: Mesh, migrate_every: int):
     The extended-slab gathers/deposits already handle any excursion within
     ``cfg.halo`` cells of the owning slab (halo contributions ride
     ``ppermute`` back to their owners), so per-step migration is
-    bookkeeping, not physics — it only keeps excursions bounded. Measured
-    motivation: ~2.6 ms/step of migrate routing at 1e8 on v5e with nothing
-    to route (PERF.md domain items); amortizing it over k steps also keeps
-    the particle arrays in the kernels' blocked layout across micro-steps.
+    bookkeeping, not physics — it only keeps excursions bounded, and its
+    routing costs the same whether or not any particle moves.
 
     Size ``halo >= migrate_every * v_max * dt / dx``: particles that
     outrun the halo mid-superstep are clamped for grid work and counted in
@@ -298,9 +285,9 @@ def make_superstep(cfg: DomainImplicitConfig, mesh: Mesh, migrate_every: int):
 
 
 def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
-    """Shared builder: ``k_mig=None`` -> the per-step path (scalar metrics,
-    in-kernel global wrap — the round-2c flagship, numerically untouched);
-    ``k_mig=k`` -> the k-micro-step superstep (stacked metrics)."""
+    """Shared builder: ``k_mig=None`` -> the per-step path (scalar
+    metrics); ``k_mig=k`` -> the k-micro-step superstep (stacked
+    metrics)."""
     grid = cfg.grid
     ng = grid.ng
     dx = grid.dx
@@ -337,18 +324,14 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
     def clamp_loc(pl):
         return jnp.clip(pl, -float(h), float(c + h))
 
-    use_fused = cfg.backend == "fused" or (
-        cfg.backend == "auto" and jax.default_backend() == "tpu"
-    )
     if cfg.backend not in ("auto", "fused", "composed"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
+    use_fused = cfg.backend != "composed"  # q/m are always scalars here
     if not use_fused and cfg.finalize_field != "last":
         raise ValueError(
             "finalize_field != 'last' requires the fused backend (the "
             "composed path returns the last Picard iterate's arrays and "
-            "has no finalize sweep to redirect); backend='auto' resolves "
-            "to composed off-TPU — set backend='fused' explicitly (it "
-            "works in CPU interpret mode too)")
+            "has no finalize sweep to redirect)")
     # clamp bounds in shifted (halo/deposit) coordinates: xi in [-h, c+h]
     clamp_lo_s = float(hw - h)
     clamp_hi_s = float(c + h + hw)
@@ -409,13 +392,15 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
         return e0
 
     emit_v = cfg.finalize == "iterate"
-    share = cfg.window_share == "shared"
     # finalize_field history: the last Picard map outputs ride the carry
     # (slab-sharded like every field leaf); 'iterate' has no finalize
     # sweep to redirect, so the history is skipped (engines.implicit
     # semantics).
     keep_eh = cfg.finalize_field in ("mean2", "map", "aitken") and not emit_v
     keep_eh2 = cfg.finalize_field == "aitken" and not emit_v
+    # the shared Picard pass (ops.picard) on the bounded extended slab
+    sweep = dict(dt=dt, dx=dx, lo=clamp_lo_s, hi=clamp_hi_s,
+                 method=cfg.deposit_method)
 
     def make_body_composed(p0l, v0, w, e0, qm):
         """Picard map as individual ops, closing over this micro-step's
@@ -445,37 +430,27 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
 
         return body_composed
 
-    def make_body_fused(p0s_b, v0_b, w_b, e0, n_cap, qm):
-        """Fused Pallas Picard map, closing over this micro-step's blocked
-        start-of-step arrays (shifted deposit coordinates)."""
+    def make_body_fused(p0s, v0, w, e0, qm):
+        """Fused Picard map (ops.picard.picard_pass), closing over this
+        micro-step's start-of-step arrays (shifted deposit coordinates)."""
 
         def body_fused(carry):
-            from ..ops.pallas_cic import picard_iteration_ext_pallas
-
-            es, pss = carry[0], carry[1]  # pss: blocked shifted iterate
-            outs = picard_iteration_ext_pallas(
-                smoothed_ext(es), pss, p0s_b, v0_b, w_b, ext_n,
-                qm=qm, dt=dt, dx=dx, lo=clamp_lo_s, hi=clamp_hi_s,
-                emit_v=emit_v, n_valid=n_cap, share_window=share,
-            )
-            if share:
-                ncl = carry[2] + outs[-1]
-                outs = outs[:-1]
-            else:
-                ncl = carry[2]
+            es, pss = carry[0], carry[1]  # pss: shifted position iterate
+            outs = picard_pass(smoothed_ext(es), pss, p0s, v0, ext_n,
+                               qm=qm, w=w, emit_v=emit_v, **sweep)
             jh = dpsum(halo_fold(outs[-1], c, hw, ax, perm_r, perm_l))
             e1, eh, r = ampere(es, jh, e0)
             es_next, aux = mix(es, eh, carry[-1], carry[-3])
             if emit_v:
-                return (es_next, outs[0], ncl, outs[1], e1, jh, aux, r,
+                return (es_next, outs[0], outs[1], e1, jh, aux, r,
                         carry[-1] + 1)
             if keep_eh:
-                # shift the map-output history: carry[3] = eh_k, [4] = eh_{k-1}
-                # (+ [5] = eh_{k-2} for aitken)
-                hist = (eh, carry[3]) + ((carry[4],) if keep_eh2 else ())
-                return (es_next, outs[0], ncl) + hist + (
+                # shift the map-output history: carry[2] = eh_k, [3] = eh_{k-1}
+                # (+ [4] = eh_{k-2} for aitken)
+                hist = (eh, carry[2]) + ((carry[3],) if keep_eh2 else ())
+                return (es_next, outs[0]) + hist + (
                     e1, jh, aux, r, carry[-1] + 1)
-            return es_next, outs[0], ncl, e1, jh, aux, r, carry[-1] + 1
+            return es_next, outs[0], e1, jh, aux, r, carry[-1] + 1
 
         return body_fused
 
@@ -485,158 +460,117 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
             return ()
         return (es0, es0) + ((es0,) if keep_eh2 else ())
 
-    def _unpack_fused(out):
-        """Unpack the non-emit_v fused Picard carry and resolve the field
-        the finalize sweep gathers with (engines.implicit.step_fused
+    def _finalize_field(out):
+        """Field the finalize sweep gathers with (engines.implicit.step_fused
         semantics; the aitken ρ inner products psum over the slab axis so
         the slab-sharded Δ² extrapolation equals the global one — fields
         are replicated across the dp axis, no dp psum needed)."""
-        es, pss, ncl = out[0], out[1], out[2]
-        e1, jh, r, k = out[-5], out[-4], out[-2], out[-1]
-        ef = es
-        if keep_eh:
-            ehl, ehp = out[3], out[4]
-            if cfg.finalize_field == "map":
-                ef = ehl
-            elif cfg.finalize_field == "mean2":
-                # at k == 1 ehp still holds the seed es0 (a prediction, not
-                # a map output) — fall back to the single output
-                ef = jnp.where(k > 1, 0.5 * (ehl + ehp), ehl)
-            else:  # 'aitken'
-                ehpp = out[5]
-                d1 = ehl - ehp
-                d2 = ehp - ehpp
-                den = lax.psum(jnp.sum(d2 * d2), ax)
-                rho = lax.psum(jnp.sum(d1 * d2), ax)
-                rho = rho / jnp.where(den > 0.0, den, 1.0)
-                rho = jnp.clip(rho, -0.95, 0.95)
-                trust = (k > 2) & (den > 0.0)
-                corr = (rho / (1.0 - rho)) * d1
-                ef = ehl + jnp.where(trust, corr, jnp.zeros_like(corr))
-        return es, pss, ncl, ef, e1, jh, r, k
+        ef = out[0]
+        k = out[-1]
+        if not keep_eh:
+            return ef
+        ehl, ehp = out[2], out[3]
+        if cfg.finalize_field == "map":
+            return ehl
+        if cfg.finalize_field == "mean2":
+            # at k == 1 ehp still holds the seed es0 (a prediction, not a
+            # map output) — fall back to the single output
+            return jnp.where(k > 1, 0.5 * (ehl + ehp), ehl)
+        ehpp = out[4]  # 'aitken'
+        d1 = ehl - ehp
+        d2 = ehp - ehpp
+        den = lax.psum(jnp.sum(d2 * d2), ax)
+        rho = lax.psum(jnp.sum(d1 * d2), ax)
+        rho = rho / jnp.where(den > 0.0, den, 1.0)
+        rho = jnp.clip(rho, -0.95, 0.95)
+        trust = (k > 2) & (den > 0.0)
+        corr = (rho / (1.0 - rho)) * d1
+        return ehl + jnp.where(trust, corr, jnp.zeros_like(corr))
+
+    def picard_step(p0l, v0, w, qm, e0, j_in, e_prev, e_prev2):
+        """One CN-Picard step in this shard's local slab coordinates.
+
+        Returns (p1l, v1, e1, j1, mean_j1, k, r): raw local final positions
+        (the caller wraps and migrates), the advanced field and the current
+        stored in state.j (see DomainImplicitConfig.finalize)."""
+        from ..ops.accel import mix_init
+
+        es0 = init_guess(e0, e_prev, e_prev2)
+        aux0 = mix_init(e0, cfg.picard_accel)
+        inf_r = jnp.asarray(jnp.inf, e0.dtype)
+        zero_i = jnp.asarray(0, jnp.int32)
+        if not use_fused:
+            carry0 = (es0, p0l, (p0l, v0), e0, j_in, aux0, inf_r, zero_i)
+            _, _, (p1l, v1), e1, j1, _, r, k = lax.while_loop(
+                cond, make_body_composed(p0l, v0, w, e0, qm), carry0)
+            return p1l, v1, e1, j1, lax.psum(jnp.sum(j1), ax) / ng, k, r
+
+        p0s = p0l + hw
+        body = make_body_fused(p0s, v0, w, e0, qm)
+        if emit_v:
+            carry0 = (es0, p0s, v0, e0, j_in, aux0, inf_r, zero_i)
+            _, _, v1, e1, jh, _, r, k = lax.while_loop(cond, body, carry0)
+            # Last Picard iterate, no extra sweep (pypic.py:293-295):
+            # p1 = p0 + dt/dx (v0 + v1)/2 elementwise; state.j holds the
+            # half-step current that drove the Ampere advance; the exact
+            # mean of the skipped full-step deposit is w sum(v1)/ng.
+            p1l = p0l + (0.5 * dt_dx) * (v0 + v1)
+            mean_j1 = lax.psum(jnp.sum(w * v1), axes_all) / ng
+            return p1l, v1, e1, jh, mean_j1, k, r
+        carry0 = (es0, p0s) + _hist0(es0) + (e0, j_in, aux0, inf_r, zero_i)
+        out = lax.while_loop(cond, body, carry0)
+        pss, e1, jh, r, k = out[1], out[-5], out[-4], out[-2], out[-1]
+        # finalize from the converged field (engines.implicit fused
+        # semantics): one extra sweep yields (p1, v1)
+        f_ext = smoothed_ext(_finalize_field(out))
+        if cfg.finalize == "converged":
+            p1s, v1 = picard_finalize(f_ext, pss, p0s, v0, ext_n, qm=qm,
+                                      **sweep)
+            mean_j1 = lax.psum(jnp.sum(w * v1), axes_all) / ng
+            j1 = jh
+        else:  # 'converged-deposit'
+            p1s, v1, j1_ext = picard_finalize(f_ext, pss, p0s, v0, ext_n,
+                                              qm=qm, w=w, **sweep)
+            j1 = dpsum(halo_fold(j1_ext, c, hw, ax, perm_r, perm_l))
+            mean_j1 = lax.psum(jnp.sum(j1), ax) / ng
+        return p1s - hw, v1, e1, j1, mean_j1, k, r
+
+    def step_metrics(e1, v1, p1l, alive, m, mean_j1, k, r, n_alive,
+                     n_migrated, n_dropped):
+        return StepMetrics(
+            field_energy=0.5 * EPSILON_0 * dx * lax.psum(jnp.sum(e1 * e1), ax),
+            kinetic_energy=0.5 * cfg.p2c * m * lax.psum(
+                jnp.sum(jnp.where(alive, v1 * v1, 0.0)), axes_all),
+            current_bias=mean_j1,
+            picard_iters=k,
+            picard_residual=r,
+            n_alive=n_alive,
+            n_migrated=n_migrated,
+            n_dropped=n_dropped,
+            # final-iterate excursions beyond the halo (clamped for grid
+            # work above — detected, never silent)
+            n_halo_clamped=lax.psum(
+                jnp.sum((alive & ((p1l < -h) | (p1l > c + h))
+                         ).astype(jnp.int32)),
+                axes_all,
+            ),
+        )
 
     def local_step(state: DomainImplicitState):
         d = lax.axis_index(ax)
         lo = d.astype(state.p.dtype) * c
         alive = state.alive
         # Dead slots are inert without masking copies: their deposit weight
-        # w is zero, kernel gathers clamp to the halo range, and every
-        # downstream consumer (migration routing, metrics, clamp counters)
-        # masks by `alive` — so p/v carry stale-but-finite values in dead
-        # slots instead of paying 4 full-array where-passes per step
-        # (measured ~2% at 1e8 on v5e — XLA fused most of the wheres away,
-        # but the simpler dataflow also keeps new consumers honest about
-        # masking at the use site).
-        p0l = state.p - lo
-        v0 = state.v
-        e0 = state.e  # (c,) own slab under shard_map
-        qm = state.q / state.m
+        # w is zero, gathers clamp to the halo range, and every downstream
+        # consumer (migration routing, metrics, clamp counters) masks by
+        # `alive` — so p/v carry stale-but-finite values in dead slots.
         w = jnp.where(alive, state.q * (cfg.p2c / dx), 0.0)
-
-        es0 = init_guess(e0, state.e_prev, state.e_prev2)
-        from ..ops.accel import mix_init
-
-        aux0 = mix_init(e0, cfg.picard_accel)
-        if use_fused:
-            from ..ops.pallas_cic import (
-                block_particles,
-                picard_finalize_ext_nodep_pallas,
-                picard_finalize_ext_pallas,
-                unblock_particles,
-            )
-
-            p0s = p0l + hw
-            # Block once per step; the Picard loop carries the position
-            # iterate in the kernels' blocked layout (no pad/slice copies
-            # per pass — see engines.implicit.step_fused).
-            n_cap = p0s.shape[0]
-            (p0s_b, v0_b, w_b), _ = block_particles([p0s, v0, w])
-            body_fused = make_body_fused(p0s_b, v0_b, w_b, e0, n_cap, qm)
-            if share:
-                # free-streaming midpoint seed keeps the shared-window
-                # deposit offset at an acceleration displacement
-                ps_seed = p0s_b + (0.5 * dt_dx) * v0_b
-            else:
-                ps_seed = p0s_b
-            ncl0 = jnp.asarray(0, jnp.int32)
-            if emit_v:
-                carry0 = (
-                    es0, ps_seed, ncl0, v0_b, e0, state.j, aux0,
-                    jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
-                )
-                es, pss, ncl, v1_b, e1, jh, _, r, k = lax.while_loop(
-                    cond, body_fused, carry0
-                )
-                # Last Picard iterate, no extra sweep (pypic.py:293-295):
-                # p1 = p0 + dt/dx (v0 + v1)/2 elementwise; state.j holds the
-                # half-step current that drove the Ampere advance; the exact
-                # mean of the skipped full-step deposit is w sum(v1)/ng.
-                v1 = unblock_particles(v1_b, n_cap)
-                p1l = p0l + (0.5 * dt_dx) * (v0 + v1)
-                j1 = jh
-                mean_j1 = lax.psum(jnp.sum(w * v1), axes_all) / ng
-            else:
-                carry0 = (es0, ps_seed, ncl0) + _hist0(es0) + (
-                    e0, state.j, aux0,
-                    jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
-                )
-                es, pss, ncl, ef, e1, jh, r, k = _unpack_fused(
-                    lax.while_loop(cond, body_fused, carry0)
-                )
-                # finalize from the converged field (engines.implicit fused
-                # semantics): one extra sweep yields (p1, v1). Stats mode:
-                # the kernel wraps positions to GLOBAL coordinates and
-                # accumulates (sum w*v1, sum_alive v1^2, halo-clamp count)
-                # in-sweep, so no separate wrap/reduction passes below.
-                lo_shift = lo - hw
-                if cfg.finalize == "converged":
-                    p1_b, v1_b, st = picard_finalize_ext_nodep_pallas(
-                        smoothed_ext(ef), pss, p0s_b, v0_b, ext_n,
-                        qm=qm, dt=dt, dx=dx, lo=clamp_lo_s, hi=clamp_hi_s,
-                        n_valid=n_cap, w=w_b, lo_shift=lo_shift, ng=ng,
-                    )
-                    j1 = jh
-                    mean_j1 = lax.psum(jnp.sum(st[0, :]), axes_all) / ng
-                else:  # 'converged-deposit'
-                    p1_b, v1_b, j1_ext, st = picard_finalize_ext_pallas(
-                        smoothed_ext(ef), pss, p0s_b, v0_b, w_b, ext_n,
-                        qm=qm, dt=dt, dx=dx, lo=clamp_lo_s, hi=clamp_hi_s,
-                        n_valid=n_cap, lo_shift=lo_shift, ng=ng,
-                    )
-                    j1 = dpsum(halo_fold(j1_ext, c, hw, ax, perm_r, perm_l))
-                    mean_j1 = lax.psum(jnp.sum(j1), ax) / ng
-                p1 = unblock_particles(p1_b, n_cap)  # global, wrapped
-                v1 = unblock_particles(v1_b, n_cap)
-                kin_local = jnp.sum(st[1, :])
-                # row 2 holds per-lane partial counts (each integer-exact
-                # in f32); sum in int32 so the total stays exact past 2^24
-                clamp_local = jnp.sum(st[2, :].astype(jnp.int32))
-        else:
-            body_composed = make_body_composed(p0l, v0, w, e0, qm)
-            carry0 = (
-                es0, p0l, (p0l, v0), e0, state.j, aux0,
-                jnp.asarray(jnp.inf, e0.dtype), jnp.asarray(0, jnp.int32),
-            )
-            _, _, (p1l, v1), e1, j1, _, r, k = lax.while_loop(
-                cond, body_composed, carry0
-            )
-            mean_j1 = lax.psum(jnp.sum(j1), ax) / ng
-
-        if use_fused and not emit_v:
-            n_halo_clamped = lax.psum(clamp_local, axes_all)
-            kin_sum = lax.psum(kin_local, axes_all)
-        else:
-            n_halo_clamped = lax.psum(
-                jnp.sum(
-                    (alive & ((p1l < -h) | (p1l > c + h))).astype(jnp.int32)
-                ),
-                axes_all,
-            )
-            kin_sum = lax.psum(jnp.sum(jnp.where(alive, v1 * v1, 0.0)),
-                               axes_all)
-            # Wrap to global coordinates (dead slots wrap too — finite
-            # garbage, masked by `alive` inside migration).
-            p1 = jnp.mod(p1l + lo, ng)
+        p1l, v1, e1, j1, mean_j1, k, r = picard_step(
+            state.p - lo, state.v, w, state.q / state.m, state.e, state.j,
+            state.e_prev, state.e_prev2)
+        # Wrap to global coordinates (dead slots wrap too — finite
+        # garbage, masked by `alive` inside migration).
+        p1 = jnp.mod(p1l + lo, ng)
         (p2, v2), alive1, n_migrated, n_dropped = migrate(
             [p1, v1], alive, d,
             ng=ng, cells_per_shard=c, num_shards=d_tot,
@@ -645,24 +579,12 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
             # ppermute rendezvous deadlocks (see domain.migrate count_axes)
             count_axes=axes_all,
         )
-
-        metrics = StepMetrics(
-            field_energy=0.5 * EPSILON_0 * dx * lax.psum(jnp.sum(e1 * e1), ax),
-            kinetic_energy=0.5 * cfg.p2c * state.m * kin_sum,
-            current_bias=mean_j1,
-            picard_iters=k,
-            picard_residual=r,
-            n_alive=lax.psum(jnp.sum(alive1.astype(jnp.int32)), axes_all),
-            n_migrated=dpsum(n_migrated),
-            picard_clamped=(
-                lax.psum(ncl, axes_all) if (use_fused and share)
-                else jnp.asarray(0, jnp.int32)
-            ),
-            n_dropped=dpsum(n_dropped),
-            n_halo_clamped=n_halo_clamped,
-        )
+        metrics = step_metrics(
+            e1, v1, p1l, alive, state.m, mean_j1, k, r,
+            lax.psum(jnp.sum(alive1.astype(jnp.int32)), axes_all),
+            dpsum(n_migrated), dpsum(n_dropped))
         new_state = state.replace(
-            p=p2, v=v2, alive=alive1, e=e1, j=j1, e_prev=e0,
+            p=p2, v=v2, alive=alive1, e=e1, j=j1, e_prev=state.e,
             e_prev2=state.e_prev, step=state.step + 1
         )
         return new_state, metrics
@@ -671,12 +593,11 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
         """k_mig micro-steps with ONE wrap + migrate at the end.
 
         Micro-steps carry positions raw in this superstep's slab frame
-        (blocked shifted coordinates on the fused path, local coordinates
-        on the composed one): the extended-slab grid ops are correct for
+        (local coordinates): the extended-slab grid ops are correct for
         any excursion within the halo, and excursions beyond it are
         clamped-for-grid-work + counted exactly as in the per-step path.
-        Only the last micro-step converts to global coordinates (in-kernel
-        on the fused stats path) and routes particles to their owners."""
+        Only the last micro-step converts to global coordinates and routes
+        particles to their owners."""
         d = lax.axis_index(ax)
         lo = d.astype(state.p.dtype) * c
         alive = state.alive
@@ -684,176 +605,28 @@ def _make_stepper(cfg: DomainImplicitConfig, mesh: Mesh, k_mig):
         w = jnp.where(alive, state.q * (cfg.p2c / dx), 0.0)
         n_alive0 = lax.psum(jnp.sum(alive.astype(jnp.int32)), axes_all)
         zero_i = jnp.asarray(0, jnp.int32)
-        from ..ops.accel import mix_init
 
-        def metrics_of(e1, kin_sum, mean_j1, k, r, nhc, ncl):
-            return StepMetrics(
-                field_energy=0.5 * EPSILON_0 * dx
-                * lax.psum(jnp.sum(e1 * e1), ax),
-                kinetic_energy=0.5 * cfg.p2c * state.m * kin_sum,
-                current_bias=mean_j1,
-                picard_iters=k,
-                picard_residual=r,
-                n_alive=n_alive0,
-                n_migrated=zero_i,
-                n_dropped=zero_i,
-                n_halo_clamped=nhc,
-                picard_clamped=(
-                    lax.psum(ncl, axes_all) if (use_fused and share)
-                    else zero_i
-                ),
-            )
+        def micro(p_l, v_c, e0, j_in, e_prev, e_prev2):
+            p1l, v1, e1, j1, mean_j1, k, r = picard_step(
+                p_l, v_c, w, qm, e0, j_in, e_prev, e_prev2)
+            met = step_metrics(e1, v1, p1l, alive, state.m, mean_j1, k, r,
+                               n_alive0, zero_i, zero_i)
+            return p1l, v1, e1, j1, met
 
-        if use_fused:
-            from ..ops.pallas_cic import (
-                block_particles,
-                picard_finalize_ext_nodep_pallas,
-                picard_finalize_ext_pallas,
-                unblock_particles,
-            )
+        carry0 = (state.p - lo, state.v, state.e, state.j,
+                  state.e_prev, state.e_prev2)
+        if k_mig > 1:
+            def scan_body(cr, _):
+                p_l, v_c, e, j, ep, ep2 = cr
+                p1l, v1, e1, j1, met = micro(p_l, v_c, e, j, ep, ep2)
+                return (p1l, v1, e1, j1, e, ep), met
 
-            n_cap = state.p.shape[0]
-            (p_b0, v_b0, w_b), _ = block_particles(
-                [state.p - lo + hw, state.v, w]
-            )
-            alive_b = w_b != 0.0
-
-            def micro(p_b, v_b, e0, j_in, e_prev, e_prev2, *, last):
-                es0 = init_guess(e0, e_prev, e_prev2)
-                aux0 = mix_init(e0, cfg.picard_accel)
-                body = make_body_fused(p_b, v_b, w_b, e0, n_cap, qm)
-                ps_seed = p_b + (0.5 * dt_dx) * v_b if share else p_b
-                inf_r = jnp.asarray(jnp.inf, e0.dtype)
-                if emit_v:
-                    carry0 = (es0, ps_seed, zero_i, v_b, e0, j_in, aux0,
-                              inf_r, zero_i)
-                    es, pss, ncl, v1_b, e1, jh, _, r, k = lax.while_loop(
-                        cond, body, carry0
-                    )
-                    # Last Picard iterate (pypic.py:293-295), in blocked
-                    # shifted coordinates; state.j = half-step current.
-                    p1_b = p_b + (0.5 * dt_dx) * (v_b + v1_b)
-                    j1 = jh
-                    mean_j1 = lax.psum(jnp.sum(w_b * v1_b), axes_all) / ng
-                    kin_sum = lax.psum(
-                        jnp.sum(jnp.where(alive_b, v1_b * v1_b, 0.0)),
-                        axes_all,
-                    )
-                    nhc = lax.psum(
-                        jnp.sum((alive_b & ((p1_b < clamp_lo_s)
-                                            | (p1_b > clamp_hi_s))
-                                 ).astype(jnp.int32)),
-                        axes_all,
-                    )
-                else:
-                    carry0 = (es0, ps_seed, zero_i) + _hist0(es0) + (
-                        e0, j_in, aux0, inf_r, zero_i)
-                    es, pss, ncl, ef, e1, jh, r, k = _unpack_fused(
-                        lax.while_loop(cond, body, carry0)
-                    )
-                    # Finalize from the converged field; ng=0 keeps the
-                    # position raw/shifted on non-last micro-steps (the
-                    # stats rows accumulate either way).
-                    lo_shift = (lo - hw) if last else jnp.zeros_like(lo)
-                    ng_k = ng if last else 0
-                    if cfg.finalize == "converged":
-                        p1_b, v1_b, st = picard_finalize_ext_nodep_pallas(
-                            smoothed_ext(ef), pss, p_b, v_b, ext_n,
-                            qm=qm, dt=dt, dx=dx, lo=clamp_lo_s,
-                            hi=clamp_hi_s, n_valid=n_cap, w=w_b,
-                            lo_shift=lo_shift, ng=ng_k,
-                        )
-                        j1 = jh
-                        mean_j1 = lax.psum(jnp.sum(st[0, :]), axes_all) / ng
-                    else:  # 'converged-deposit'
-                        p1_b, v1_b, j1_ext, st = picard_finalize_ext_pallas(
-                            smoothed_ext(ef), pss, p_b, v_b, w_b, ext_n,
-                            qm=qm, dt=dt, dx=dx, lo=clamp_lo_s,
-                            hi=clamp_hi_s, n_valid=n_cap,
-                            lo_shift=lo_shift, ng=ng_k,
-                        )
-                        j1 = dpsum(
-                            halo_fold(j1_ext, c, hw, ax, perm_r, perm_l)
-                        )
-                        mean_j1 = lax.psum(jnp.sum(j1), ax) / ng
-                    kin_sum = lax.psum(jnp.sum(st[1, :]), axes_all)
-                    nhc = lax.psum(
-                        jnp.sum(st[2, :].astype(jnp.int32)), axes_all
-                    )
-                met = metrics_of(e1, kin_sum, mean_j1, k, r, nhc, ncl)
-                return p1_b, v1_b, e1, j1, met
-
-            carry0 = (p_b0, v_b0, state.e, state.j, state.e_prev,
-                      state.e_prev2)
-            if k_mig > 1:
-                def scan_body(cr, _):
-                    p_b, v_b, e, j, ep, ep2 = cr
-                    p1_b, v1_b, e1, j1, met = micro(
-                        p_b, v_b, e, j, ep, ep2, last=False
-                    )
-                    return (p1_b, v1_b, e1, j1, e, ep), met
-
-                carry, ms = lax.scan(
-                    scan_body, carry0, None, length=k_mig - 1
-                )
-            else:
-                carry, ms = carry0, None
-            p_b, v_b, e_c, j_c, ep_c, ep2_c = carry
-            p1_b, v1_b, e1, j1, met_last = micro(
-                p_b, v_b, e_c, j_c, ep_c, ep2_c, last=True
-            )
-            v1 = unblock_particles(v1_b, n_cap)
-            if emit_v:
-                # raw shifted -> global wrap (the converged finalize
-                # kernels did this in-kernel via lo_shift/ng)
-                p1 = jnp.mod(unblock_particles(p1_b, n_cap) + (lo - hw), ng)
-            else:
-                p1 = unblock_particles(p1_b, n_cap)
+            carry, ms = lax.scan(scan_body, carry0, None, length=k_mig - 1)
         else:
-            def micro(p_l, v_c, e0, j_in, e_prev, e_prev2, *, last):
-                del last  # composed path wraps outside the micro-step
-                es0 = init_guess(e0, e_prev, e_prev2)
-                aux0 = mix_init(e0, cfg.picard_accel)
-                body = make_body_composed(p_l, v_c, w, e0, qm)
-                carry0 = (
-                    es0, p_l, (p_l, v_c), e0, j_in, aux0,
-                    jnp.asarray(jnp.inf, e0.dtype), zero_i,
-                )
-                _, _, (p1l, v1), e1, j1, _, r, k = lax.while_loop(
-                    cond, body, carry0
-                )
-                mean_j1 = lax.psum(jnp.sum(j1), ax) / ng
-                kin_sum = lax.psum(
-                    jnp.sum(jnp.where(alive, v1 * v1, 0.0)), axes_all
-                )
-                nhc = lax.psum(
-                    jnp.sum((alive & ((p1l < -h) | (p1l > c + h))
-                             ).astype(jnp.int32)),
-                    axes_all,
-                )
-                met = metrics_of(e1, kin_sum, mean_j1, k, r, nhc, zero_i)
-                return p1l, v1, e1, j1, met
-
-            carry0 = (state.p - lo, state.v, state.e, state.j,
-                      state.e_prev, state.e_prev2)
-            if k_mig > 1:
-                def scan_body(cr, _):
-                    p_l, v_c, e, j, ep, ep2 = cr
-                    p1l, v1, e1, j1, met = micro(
-                        p_l, v_c, e, j, ep, ep2, last=False
-                    )
-                    return (p1l, v1, e1, j1, e, ep), met
-
-                carry, ms = lax.scan(
-                    scan_body, carry0, None, length=k_mig - 1
-                )
-            else:
-                carry, ms = carry0, None
-            p_l, v_c, e_c, j_c, ep_c, ep2_c = carry
-            p1l, v1, e1, j1, met_last = micro(
-                p_l, v_c, e_c, j_c, ep_c, ep2_c, last=True
-            )
-            p1 = jnp.mod(p1l + lo, ng)
+            carry, ms = carry0, None
+        p_l, v_c, e_c, j_c, ep_c, ep2_c = carry
+        p1l, v1, e1, j1, met_last = micro(p_l, v_c, e_c, j_c, ep_c, ep2_c)
+        p1 = jnp.mod(p1l + lo, ng)
 
         (p2, v2), alive1, n_migrated, n_dropped = migrate(
             [p1, v1], alive, d,

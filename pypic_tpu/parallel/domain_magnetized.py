@@ -44,10 +44,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..utils.pytree import PyTreeNode
 from ..constants import E_CHARGE, EPSILON_0, EV_TO_K, K_BOLTZMANN, M_ELECTRON
 from ..grid import DIRICHLET_DIRICHLET, GridSpec
 from ..ops import deposit, gather
@@ -172,7 +172,7 @@ class DomainMagnetizedConfig:
         return self.grid.ng // self.num_shards
 
 
-class DomainMagnetizedState(struct.PyTreeNode):
+class DomainMagnetizedState(PyTreeNode):
     p: jax.Array  # (S*cap,) GLOBAL grid coords, sharded
     y: jax.Array  # (S*cap,) [m], sharded
     z: jax.Array
@@ -239,7 +239,7 @@ def init_state(
     if cfg.num_replicas > 1:
         # round-robin split of each slab's population over the replica axis
         # — layout (S, R, cap_r) so P((slabs, dp)) places replica r of slab
-        # s on device (s, r); lane-align the per-replica capacity
+        # s on device (s, r); the per-replica capacity rounds up to 128
         # (domain_implicit.init_state's composition)
         r_tot = cfg.num_replicas
         cap_r = -(-blocks[0].shape[1] // r_tot)

@@ -38,10 +38,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..utils.pytree import PyTreeNode
 from ..constants import EPSILON_0
 from ..engines.sheath import ACTIVE, LOST_LEFT, LOST_RIGHT
 from ..grid import GridSpec
@@ -108,7 +108,7 @@ class DomainSheathConfig:
         return self.grid.ng // self.num_shards
 
 
-class DomainSheathState(struct.PyTreeNode):
+class DomainSheathState(PyTreeNode):
     p: jax.Array  # (S*cap,) global grid coords, sharded
     v: jax.Array  # (S*cap, 3) [m/s], sharded
     q: jax.Array  # (S*cap,) [C], sharded

@@ -1,11 +1,12 @@
 """Device mesh helpers + multi-host bootstrap.
 
 The reference has no communication layer at all (SURVEY.md §2.6 — zero
-MPI/NCCL imports repo-wide); this is the TPU-native replacement: a
-single-controller 1D mesh over local devices, and an env-gated
-``jax.distributed.initialize`` so the same mesh spans pods over ICI/DCN
-(multi-host runs see the *global* device list after initialization, so
-``make_mesh`` and every shard_map engine work unchanged).
+MPI/NCCL imports repo-wide); this is the JAX replacement: a
+single-controller 1D mesh over local devices (XLA hands the collectives to
+NCCL on GPUs), and an env-gated ``jax.distributed.initialize`` so the same
+mesh spans hosts (multi-host runs see the *global* device list after
+initialization, so ``make_mesh`` and every shard_map engine work
+unchanged).
 """
 
 from __future__ import annotations
@@ -25,18 +26,17 @@ def maybe_initialize_distributed() -> bool:
       * ``PYPIC_COORDINATOR`` (host:port), ``PYPIC_NUM_PROCESSES``,
         ``PYPIC_PROCESS_ID`` — explicit single-purpose variables;
       * otherwise defers to ``jax.distributed.initialize()``'s own
-        auto-detection (Cloud TPU metadata, Slurm/OpenMPI env) when
-        ``PYPIC_DISTRIBUTED=1``.
+        auto-detection (Slurm/OpenMPI env) when ``PYPIC_DISTRIBUTED=1``.
 
     Returns True when a distributed runtime was initialized; False when the
-    environment requests none (single-host run — the common case on this
-    machine). Safe to call twice (second call is a no-op).
+    environment requests none (single-host run — the common case). Safe to
+    call twice (second call is a no-op).
     """
     coord = os.environ.get("PYPIC_COORDINATOR")
     auto = os.environ.get("PYPIC_DISTRIBUTED") == "1"
     if not coord and not auto:
         return False
-    if jax._src.distributed.global_state.client is not None:  # already up
+    if jax.distributed.is_initialized():
         return True
     if coord:
         jax.distributed.initialize(
@@ -69,7 +69,8 @@ def make_mesh2(
     — e.g. spatial slabs x data-parallel particle replicas for the
     domain-decomposed engines (DomainImplicitConfig.dp_axis_name). The
     second axis varies fastest, so replicas of a slab sit on adjacent
-    devices (ICI-near on a physical torus slice)."""
+    device ids; on GPUs joined all to all by NVLink every pair of devices
+    is equally near, so the layout follows the algorithm alone."""
     devices = jax.devices()
     need = n_first * n_second
     if need > len(devices):

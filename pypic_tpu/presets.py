@@ -334,7 +334,11 @@ def domain_implicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
         grid, dt, params.p2c, num_shards=n_dev,
         tol=kw.get("tol", 1e-9), maxiter=kw.get("maxiter", 50),
         halo=halo, picard_init="extrapolate",
-        migrate_cap=max(4096, 4 * k_mig * (n // ng)),
+        # the 0.8-amplitude perturbation doubles the electrons' rms speed
+        # within 10 steps and bunches them, so one slab edge can see
+        # several cells' worth of particles per step: 4 cells' worth
+        # overflowed (dropped particles) at step 7, 8 held for 100 steps
+        migrate_cap=max(4096, 16 * k_mig * (n // ng)),
         dp_axis_name="dp" if r > 1 else None, num_replicas=r,
     )
     mesh = (make_mesh2(n_dev, r, axes=("slabs", "dp")) if r > 1
@@ -381,16 +385,11 @@ def domain_explicit(n: int = 1_000_000, ng: int = 200, seed: int = 1,
     halo = (0 if k_mig == 1 else
             min(ng // n_dev - 1,
                 max(4, k_mig * int(np.ceil(8.0 * sigma_cells)))))
-    carried = kw.get("carried_rho", "off")
-    if carried == "on" and k_mig == 1:
-        # carried deposits POST-push positions: halo covers one step
-        halo = min(ng // n_dev - 1,
-                   max(4, int(np.ceil(8.0 * sigma_cells))))
     cfg = dom.DomainConfig(
         grid, dt, params.p2c, num_shards=n_dev, halo=halo,
-        migrate_cap=max(4096, 4 * k_mig * (n // ng)),
+        # sized as in domain_implicit (same workload)
+        migrate_cap=max(4096, 16 * k_mig * (n // ng)),
         field_solve=kw.get("field_solve", "replicated"),
-        carried_rho=carried,
     )
     mesh = make_mesh(n_dev, axis="slabs")
     st = dom.shard_state(

@@ -33,7 +33,7 @@ def sample_source_6d(key, n: int, grid: GridSpec, ti: float, mass: float,
     """Volumetric Maxwellian source batch (pygcpic.py:723-755).
 
     ``components=True`` returns flat {"x", "vx", "vy", "vz"} rows drawn as
-    a (3, n) normal (lanes-major — no (n, 3) slice materialization in the
+    a (3, n) normal (contiguous rows — no (n, 3) slice materialization in the
     consumer; different draws than the stacked form, same distribution)."""
     kx, kv = jax.random.split(key)
     length = grid.length
@@ -51,12 +51,11 @@ def sample_source_6d(key, n: int, grid: GridSpec, ti: float, mass: float,
 #
 # Re-activation policies resample a full-capacity batch every step and mask
 # in the handful of slots that actually need it (fixed shapes under jit).
-# jax.random's threefry + erfinv at capacity=1e6 x 4 draws measured ~0.84 ms
-# on v5e — a third of the whole magnetized step. The TPU-native replacement
-# is a counter-based generator (the curand/Philox idea): hash (slot index,
-# step seed) with a strong 32-bit mixer and turn the uniforms into exact
-# gaussians via Box-Muller. ~30 fused elementwise VPU ops per slot, no
-# tables, bit-deterministic given the step key, identical distribution.
+# A counter-based generator (the curand/Philox idea) makes such batches
+# shard-count-invariant and cheap: hash (slot index, step seed) with a
+# strong 32-bit mixer and turn the uniforms into exact gaussians via
+# Box-Muller. ~30 fused elementwise ops per slot, no tables,
+# bit-deterministic given the step key, identical distribution.
 
 
 def _mix32(x):
@@ -109,8 +108,8 @@ def sample_source_6d_hash(key, n: int, grid: GridSpec, ti: float,
                           slot_offset=0, components: bool = False):
     """``sample_source_6d`` on the counter-based generator: identical
     distribution (gaussian-in-x at L/2 sigma L/12 wrapped, Maxwellian
-    3-velocity + vx on every component, pygcpic.py:723-755), ~10x cheaper
-    per draw on TPU. ``slot_offset``: see hash_uniforms — shard-count-
+    3-velocity + vx on every component, pygcpic.py:723-755), without
+    threefry's erfinv. ``slot_offset``: see hash_uniforms — shard-count-
     invariant batches under data-parallel sharding."""
     length = grid.length
     vth = float(np.sqrt(K_BOLTZMANN * float(ti) / float(mass)))

@@ -26,7 +26,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 # Status codes. ACTIVE/LOST_RIGHT/LOST_LEFT match PIC_L_DD.py's active flags.
 ACTIVE = 1
@@ -35,7 +34,7 @@ LOST_LEFT = -1
 INACTIVE = -2  # free slot (never been active / deleted)
 
 
-class Particles1V(struct.PyTreeNode):
+class Particles1V(PyTreeNode):
     """Lean single-species 1d1v particles for the periodic engines.
 
     Mirrors the array set of the gen-3 implicit engine (pypic.py:528-547):
@@ -50,7 +49,7 @@ class Particles1V(struct.PyTreeNode):
         return self.p.shape[0]
 
 
-class Particles(struct.PyTreeNode):
+class Particles(PyTreeNode):
     """General multi-species 1d3v particles (sheath / magnetized engines).
 
     Field-per-field parity with the reference's per-particle attributes:

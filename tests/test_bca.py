@@ -378,44 +378,6 @@ def test_bca_iead_dp_matches_single_device():
     assert int(np.asarray(fin8.p).shape[0]) == int(np.asarray(fin1.p).shape[0])
 
 
-def test_bca_driver_with_carried_deposit():
-    """The hybrid BCA loop composes with carried_deposit='on': the inject
-    patch keeps the carry consistent through wall-product injection, and
-    the carried run reproduces the recomputed-deposit run's surface budget
-    (same RNG streams, tolerance-level deposits)."""
-    import dataclasses as dc
-
-    from pypic_tpu.constants import E_CHARGE
-    from pypic_tpu.ops import deposit
-
-    cfg_off, st, pre = _bca_setup(ppc=10)
-    cfg_on = dc.replace(cfg_off, carried_deposit="on", carried_pad=8,
-                        react_batch=512)
-    st_on = magnetized.prime_carry(st, cfg_on)
-    kw = dict(product_p2c=float(np.asarray(st.p2c)[0]), seed=3)
-    model = lambda s: bca.BinaryCollisionModel(seed=s)
-    model_b = lambda s: bca.BinaryCollisionModel(incident_m_amu=10.81,
-                                                 incident_z=5, seed=s)
-    fin0, stats0, _ = bca_driver.run_bca(st, cfg_off, 60, model(1),
-                                         model_b(2), **kw)
-    fin1, stats1, _ = bca_driver.run_bca(st_on, cfg_on, 60, model(1),
-                                         model_b(2), **kw)
-    # carry invariant after the full hybrid chain (injections included)
-    ia = fin1.active == 1
-    dx = cfg_on.grid.dx
-    wn = jnp.where(ia, fin1.p2c / dx, 0.0)
-    n_f = deposit(fin1.p, wn, cfg_on.grid.ng, periodic=False,
-                  method="scatter")
-    dn = float(jnp.max(jnp.abs(fin1.n - n_f))
-               / (jnp.max(jnp.abs(n_f)) + 1e-30))
-    assert dn < 5e-5, dn
-    # same surface budget (identical RNG; dynamics agree to f32 rounding)
-    assert stats1.source_incident > 0
-    assert abs(stats1.source_incident - stats0.source_incident) \
-        <= max(3, 0.1 * stats0.source_incident)
-    assert stats1.dropped == 0
-
-
 def test_ftridyn_seam_fixture_contract():
     """bca.FTridynBCA against a recorded fake ``fractal_tridyn`` module:
     pins the exact constructor/call/file contract the reference uses

@@ -72,10 +72,9 @@ def test_explicit_state_checkpoint_with_field_invariants(tmp_path):
     # a legacy checkpoint missing the rho/e leaves: simulate by saving a
     # pruned pytree, then restoring into the full template — the carried
     # fields fall back to the template's (consistent) values
-    import flax.struct as fs
+    from pypic_tpu.utils.pytree import PyTreeNode
 
-    @fs.dataclass
-    class OldState:
+    class OldState(PyTreeNode):
         p: object
         v: object
         q: object

@@ -138,92 +138,6 @@ def test_domain_explicit_superstep_matches_per_step(problem, field_solve):
     assert int(np.asarray(s.step)) == 2 * k
 
 
-def test_domain_explicit_fused_push_matches_composed(problem):
-    """push_backend='fused' (one Pallas gather+leapfrog+wrap sweep over the
-    replicated global field) follows the composed ops trajectory, conserves
-    the population, and rejects the configurations outside its contract."""
-    import dataclasses as dc
-
-    grid, x, v, params = problem
-    dt = 0.1 / params.wp
-    mesh = make_mesh(8, axis="slabs")
-    cfg_c = domain.DomainConfig(grid, dt, params.p2c, num_shards=8,
-                                migrate_cap=2048, push_backend="composed")
-    cfg_f = dc.replace(cfg_c, push_backend="fused")
-    dst = domain.shard_state(
-        domain.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg_c), mesh, cfg_c
-    )
-    _, m_c = run(domain.make_step(cfg_c, mesh), dst, 60)
-    _, m_f = run(domain.make_step(cfg_f, mesh), dst, 60)
-    np.testing.assert_allclose(
-        np.asarray(m_f.field_energy, np.float64),
-        np.asarray(m_c.field_energy, np.float64), rtol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(m_f.kinetic_energy, np.float64),
-        np.asarray(m_c.kinetic_energy, np.float64), rtol=1e-5)
-    assert (np.asarray(m_f.n_alive) == 16_000).all()
-    assert np.asarray(m_f.n_dropped).sum() == 0
-
-    # k=1 superstep accepts the fused kernel too (same contract)
-    s1, _ = jax.jit(domain.make_step(cfg_f, mesh))(dst)
-    s2, _ = jax.jit(domain.make_superstep(cfg_f, mesh, 1))(dst)
-    np.testing.assert_array_equal(np.asarray(s1.p), np.asarray(s2.p))
-    np.testing.assert_array_equal(np.asarray(s1.v), np.asarray(s2.v))
-
-    # outside the contract: distributed solve / scanned micro-steps
-    with pytest.raises(ValueError, match="fused"):
-        domain.make_step(
-            dc.replace(cfg_f, field_solve="distributed"), mesh)
-    with pytest.raises(ValueError, match="fused"):
-        domain.make_superstep(dc.replace(cfg_f, halo=4), mesh, 2)
-
-
-def test_domain_explicit_carried_rho_matches_composed(problem):
-    """carried_rho='on' (the one-sweep cycle: solve from the carried rho,
-    gather+push+deposit-of-p1 in one kernel) follows the composed
-    trajectory — the carried deposit of step t's p1 IS step t+1's deposit
-    of p, migration only relabels slots — with zero clamps when the halo
-    covers the one-step excursion, and rejects unsupported compositions."""
-    import dataclasses as dc
-
-    grid, x, v, params = problem
-    dt = 0.1 / params.wp
-    mesh = make_mesh(4, axis="slabs")
-    cfg_c = domain.DomainConfig(grid, dt, params.p2c, num_shards=4,
-                                migrate_cap=4096, push_backend="composed")
-    cfg_k = dc.replace(cfg_c, carried_rho="on", halo=12)
-    dst = domain.shard_state(
-        domain.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg_c), mesh, cfg_c
-    )
-    _, m_c = run(domain.make_step(cfg_c, mesh), dst, 60)
-    _, m_k = run(domain.make_step(cfg_k, mesh), dst, 60)
-    np.testing.assert_allclose(
-        np.asarray(m_k.field_energy, np.float64),
-        np.asarray(m_c.field_energy, np.float64), rtol=2e-4)
-    np.testing.assert_allclose(
-        np.asarray(m_k.kinetic_energy, np.float64),
-        np.asarray(m_c.kinetic_energy, np.float64), rtol=1e-5)
-    assert (np.asarray(m_k.n_alive) == 16_000).all()
-    assert np.asarray(m_k.n_dropped).sum() == 0
-    assert np.asarray(m_k.n_halo_clamped).sum() == 0
-
-    # prime_rho reproduces the init prime from restored positions
-    import jax.numpy as jnp
-
-    st2 = domain.prime_rho(dst.replace(rho=jnp.zeros_like(dst.rho)), cfg_k)
-    np.testing.assert_allclose(np.asarray(st2.rho), np.asarray(dst.rho),
-                               rtol=1e-6, atol=1e-12)
-
-    # outside the contract
-    with pytest.raises(ValueError, match="halo"):
-        dc.replace(cfg_c, carried_rho="on", halo=0)
-    with pytest.raises(ValueError, match="replicated"):
-        dc.replace(cfg_c, carried_rho="on", halo=4,
-                   field_solve="distributed")
-    with pytest.raises(ValueError, match="carried_rho"):
-        domain.make_superstep(cfg_k, mesh, 2)
-
-
 def test_domain_explicit_superstep_clamp_detected(problem):
     """An undersized halo reports outrunners via n_halo_clamped instead of
     silently misdepositing."""
@@ -666,39 +580,6 @@ def test_domain_explicit_distributed_solve_matches_replicated(problem):
     np.testing.assert_allclose(ke_d, ke_r, rtol=1e-4)
     assert (np.asarray(runs["distributed"].n_alive) == 16_000).all()
     assert np.asarray(runs["distributed"].n_dropped).sum() == 0
-
-
-def test_domain_implicit_window_share_matches_separate(problem):
-    """window_share='shared' on the 8-shard fused domain engine (one
-    window decomposition + selector per pass, free-streaming-midpoint
-    seed) reaches the same physics as the separate-window pass at the
-    conserving configuration, with zero widened-edge deposit clamps."""
-    from pypic_tpu.parallel import domain_implicit as di
-
-    grid, x, v, params = problem
-    dt = 0.1 / params.wp
-    kw = dict(tol=1e-30, maxiter=4, picard_init="extrapolate",
-              picard_accel="anderson", backend="fused",
-              num_shards=8, halo=4, migrate_cap=2048)
-    mesh = make_mesh(8, axis="slabs")
-    outs = {}
-    for mode in ("separate", "shared"):
-        cfg = di.DomainImplicitConfig(grid, dt, params.p2c,
-                                      window_share=mode, **kw)
-        st = di.shard_state(
-            di.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg), mesh, cfg
-        )
-        _, m = run(di.make_step(cfg, mesh), st, 50)
-        outs[mode] = m
-    ee_sep = np.asarray(outs["separate"].field_energy, np.float64)
-    ee_sh = np.asarray(outs["shared"].field_energy, np.float64)
-    np.testing.assert_allclose(ee_sh, ee_sep, rtol=3e-3)
-    ke_sep = np.asarray(outs["separate"].kinetic_energy, np.float64)
-    ke_sh = np.asarray(outs["shared"].kinetic_energy, np.float64)
-    np.testing.assert_allclose(ke_sh, ke_sep, rtol=1e-4)
-    assert int(np.asarray(outs["shared"].picard_clamped).sum()) == 0
-    tot = ee_sh + ke_sh
-    assert abs(tot[-1] / tot[0] - 1.0) < 2e-3
 
 
 def _iead_like_domain_cfg(c1, **kw):

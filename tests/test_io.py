@@ -397,10 +397,11 @@ def test_cli_domain_explicit_preset(tmp_path):
                     "--outdir", out + "_sup", "--clean"]
         main()
         # --opt reaches preset keywords without a dedicated flag: the
-        # carried-rho one-sweep cycle end-to-end from the CLI
+        # distributed field solve end-to-end from the CLI
         sys.argv = ["cli", "run", "domain_explicit", "--particles", "16000",
                     "--steps", "8", "--shards", "4", "--opt",
-                    "carried_rho=on", "--outdir", out + "_car", "--clean"]
+                    "field_solve=distributed", "--outdir", out + "_dist",
+                    "--clean"]
         main()
         # a strict-signature preset rejects unknown --opt keys cleanly
         # (the **kw presets swallow extras by design, like migrate_every)
@@ -420,54 +421,6 @@ def test_cli_domain_explicit_preset(tmp_path):
         assert all(np.isfinite(r["field_energy"]) for r in rows)
         assert rows[-1]["n_dropped"] == 0
     assert rows[-1]["n_halo_clamped"] == 0
-
-
-def test_cli_carried_rho_resume_reprime(tmp_path, capsys):
-    """Resuming with carried_rho='on' from a checkpoint written under
-    carried_rho='off' must re-prime the rho leaf (the off-path leaf is the
-    stale step-0 init deposit; trusting it would solve the first resumed
-    step's field from t=0 charge). A carried-written checkpoint must NOT
-    re-prime (bit-exact resume). Also covers --opt migrate_every passthrough
-    (the guard compares against the pkw value, not the bare flag)."""
-    import sys
-
-    from pypic_tpu.cli import main
-
-    argv_old = sys.argv
-    base = ["cli", "run", "domain_explicit", "--particles", "8000",
-            "--steps", "8", "--shards", "4", "--checkpoint-every", "4"]
-    try:
-        out = str(tmp_path / "off_run")
-        sys.argv = base + ["--outdir", out, "--clean"]
-        main()
-        capsys.readouterr()
-        # resume flipped to carried: the stale leaf must be re-primed
-        sys.argv = base + ["--opt", "carried_rho=on", "--outdir", out,
-                           "--resume"]
-        main()
-        assert "re-primed carried rho" in capsys.readouterr().err
-        # carried-written checkpoint, carried resume: leaf is live — no
-        # re-prime (keeps resume bit-exact)
-        out2 = str(tmp_path / "on_run")
-        sys.argv = base + ["--opt", "carried_rho=on", "--outdir", out2,
-                           "--clean"]
-        main()
-        capsys.readouterr()
-        sys.argv = base + ["--opt", "carried_rho=on", "--outdir", out2,
-                           "--resume"]
-        main()
-        assert "re-primed" not in capsys.readouterr().err
-        # --opt migrate_every=N builds the superstep preset (no false
-        # "not supported" exit)
-        sys.argv = ["cli", "run", "domain_explicit", "--particles", "8000",
-                    "--steps", "8", "--shards", "4", "--opt",
-                    "migrate_every=4", "--outdir", str(tmp_path / "sup"),
-                    "--clean"]
-        main()
-    finally:
-        sys.argv = argv_old
-    rows = [json.loads(l) for l in open(os.path.join(out, "metrics.jsonl"))]
-    assert all(np.isfinite(r["field_energy"]) for r in rows)
 
 
 def test_cli_domain_preset_2d_replicas(tmp_path):

@@ -188,48 +188,6 @@ def test_source_distribution_moments():
     np.testing.assert_allclose(np.asarray(b["v"]).std(axis=0), vth, rtol=0.02)
 
 
-def test_pallas_source_batch_distribution():
-    """source_batch_pallas (the single-device-TPU 'auto' sampler; the
-    off-TPU interpret fallback feeds it threefry bits) draws the
-    sample_source_6d distribution: wrapped gaussian x at (L/2, L/12),
-    Maxwellian + vx on every velocity component. Also exercised in-engine
-    via source_sampler='pallas' on the pic_iead workload."""
-    import dataclasses as dc
-
-    from pypic_tpu.ops.pallas_rng import source_batch_pallas
-    from pypic_tpu.presets import pic_iead
-    from pypic_tpu.runner import run as _run
-
-    ti, mass, vx = 10.0 * EV_TO_K, M_PROTON, 3e4
-    vth = np.sqrt(K_BOLTZMANN * ti / mass)
-    x, ux, uy, uz = source_batch_pallas(
-        jnp.uint32(9), jax.random.PRNGKey(9), 200_000,
-        x_mu=0.5, x_sigma=1.0 / 12.0, x_wrap=1.0, vth=float(vth), vx=vx,
-    )
-    x = np.asarray(x, np.float64)
-    assert (x >= 0).all() and (x <= 1.0).all()
-    assert abs(x.mean() - 0.5) < 0.01
-    assert abs(x.std() - 1.0 / 12.0) < 0.005
-    for comp in (ux, uy, uz):
-        c = np.asarray(comp, np.float64)
-        assert abs(c.std() - vth) < 0.02 * vth
-        assert abs(c.mean() - vx) < 0.02 * vth
-        z = (c - c.mean()) / c.std()
-        assert abs((z**3).mean()) < 0.05
-        assert abs((z**4).mean() - 3.0) < 0.1
-
-    # in-engine: same pic_iead physics as the threefry sampler
-    pre = pic_iead(n_per_species=400)
-    outs = {}
-    for sampler in ("threefry", "pallas"):
-        cfg = dc.replace(pre.config, source_sampler=sampler)
-        _, m = _run(magnetized.make_step(cfg), pre.state, 30)
-        outs[sampler] = np.asarray(m.phi_max, np.float64)
-    np.testing.assert_allclose(
-        outs["pallas"][5:].mean(), outs["threefry"][5:].mean(), rtol=0.05
-    )
-
-
 def test_hash_sampler_distribution_matches_threefry():
     """The counter-based sampler draws the same distribution as the
     jax.random one (gaussian-in-x wrapped, Maxwellian + vx velocities)."""
@@ -458,37 +416,6 @@ def test_step_determinism():
         np.testing.assert_array_equal(a, b)
 
 
-def test_magnetized_fused_backend_matches_composed():
-    """The Pallas dual-deposit + fused gather/Boris backend == composed ops
-    for a single step (interpret mode on CPU runs the identical kernels).
-    Multi-step trajectories diverge chaotically from f32 reduction-order
-    lsb differences amplified by the discrete absorption-count feedback, so
-    the equivalence check is per-step on the continuous quantities."""
-    from pypic_tpu.presets import pic_iead
-    import dataclasses as dc
-
-    outs = {}
-    for backend in ("composed", "fused"):
-        pre = pic_iead(n_per_species=500)
-        cfg = dc.replace(pre.config, backend=backend)
-        st2, m = magnetized.make_step(cfg)(pre.state)
-        outs[backend] = (st2, m)
-    st_c, m_c = outs["composed"]
-    st_f, m_f = outs["fused"]
-    np.testing.assert_allclose(np.asarray(m_f.rho), np.asarray(m_c.rho),
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(m_f.phi), np.asarray(m_c.phi),
-                               rtol=1e-3, atol=1e-8)
-    act = np.asarray(st_c.active) == 1
-    np.testing.assert_allclose(np.asarray(st_f.p)[act],
-                               np.asarray(st_c.p)[act], rtol=2e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(st_f.v)[act],
-                               np.asarray(st_c.v)[act], rtol=2e-4, atol=1.0)
-    assert int(np.asarray(st_f.active).sum()) == int(
-        np.asarray(st_c.active).sum()
-    )
-
-
 def test_magnetized_data_parallel_matches_single_device():
     """Data-parallel magnetized engine (the pic_iead workload) on the
     8-device mesh: deposits/histograms/ledgers psum'd, the Newton solve
@@ -701,13 +628,10 @@ def test_magnetized_dp_config_gates():
                    flux_limit=10, source_sampler="threefry")
     with pytest.raises(ValueError, match="impact_buffer"):
         dc.replace(cfg, axis_name="particles", impact_buffer_size=64)
-    # explicit backend/sampler requests that cannot be honored raise
-    # rather than silently running a different path (module convention)
-    with pytest.raises(ValueError, match="fused"):
-        dc.replace(cfg, pusher="gc", backend="fused")
-    with pytest.raises(ValueError, match="flux"):
-        dc.replace(cfg, reactivate="flux", flux_limit=10,
-                   source_sampler="pallas")
+    # a sampler that does not exist raises rather than silently running
+    # a different stream (module convention)
+    with pytest.raises(ValueError, match="source_sampler"):
+        dc.replace(cfg, source_sampler="pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -904,33 +828,6 @@ def test_pic_iead_gc_preset_produces_ieads():
     assert (np.asarray(st.v[:, 1])[act & gc] >= 0.0).all()
 
 
-def test_magnetized_newton_backend_pallas_matches_xla():
-    """newton_backend='pallas' (one-kernel PCR Newton) tracks the 'xla'
-    while_loop solve through full engine steps: same converged potentials
-    and identical discrete outcomes (wall hits, reactivation counts)."""
-    from pypic_tpu.presets import pic_iead
-    import dataclasses as dc
-
-    outs = {}
-    for backend in ("xla", "pallas"):
-        pre = pic_iead(n_per_species=400)
-        cfg = dc.replace(pre.config, newton_backend=backend)
-        step = magnetized.make_step(cfg)
-        st, m = step(pre.state)
-        st, m2 = step(st)
-        outs[backend] = (st, m, m2)
-    st_x, m_x, m2_x = outs["xla"]
-    st_p, m_p, m2_p = outs["pallas"]
-    for a, b in ((m_x, m_p), (m2_x, m2_p)):
-        scale = float(np.abs(np.asarray(a.phi)).max()) or 1.0
-        np.testing.assert_allclose(np.asarray(b.phi) / scale,
-                                   np.asarray(a.phi) / scale, atol=1e-4)
-        assert int(a.n_hit_wall) == int(b.n_hit_wall)
-        assert int(a.n_reactivated) == int(b.n_reactivated)
-    np.testing.assert_allclose(np.asarray(st_p.phi), np.asarray(st_x.phi),
-                               rtol=1e-3, atol=1e-5)
-
-
 def test_magnetized_react_batch_matches_full_draw_take_set():
     """react_batch > 0 re-activates exactly the slots the full-capacity
     draw re-activates when the cap is not binding (values come from a
@@ -1038,26 +935,6 @@ def test_magnetized_dp_react_batch_matches_single_device():
     assert np.abs(a1.astype(int) - a8.astype(int)).max() <= 4, (a1, a8)
 
 
-def test_magnetized_dp_pallas_newton_runs():
-    """newton_backend='pallas' composes with data-parallel sharding (the
-    kernel runs replicated on the psum'd densities inside shard_map)."""
-    import dataclasses as dc
-
-    from pypic_tpu.presets import pic_iead
-    from pypic_tpu.parallel import make_mesh, make_data_parallel_step
-    from pypic_tpu.parallel.dataparallel import shard_state
-
-    pre = pic_iead(n_per_species=400)
-    cfg8 = dc.replace(pre.config, axis_name="particles",
-                      source_sampler="hash", newton_backend="pallas")
-    mesh = make_mesh(8)
-    step8 = make_data_parallel_step(
-        magnetized.make_step, cfg8, mesh, example_state=pre.state)
-    st8, m8 = jax.jit(step8)(shard_state(pre.state, mesh))
-    assert np.isfinite(float(m8.phi_max))
-    assert int(m8.newton_iters) < cfg8.newton_maxiter
-
-
 def test_magnetized_react_batch_capped_source_deficit():
     """react_batch composes with the 'capped-source' deficit: the take
     count is min(deficit, react_batch, n_inactive)."""
@@ -1080,199 +957,6 @@ def test_magnetized_react_batch_capped_source_deficit():
     assert int(m.n_reactivated) <= 16
 
 
-# ---------------------------------------------------------------------------
-# carried-deposit step (round 3c): the step-opening rho/n deposit rides the
-# previous step's push kernel (PERF.md round-4 lead; pygcpic.py:841-905
-# deposit semantics preserved through in-kernel wall-hit zeroing + packed
-# mutation patches)
-# ---------------------------------------------------------------------------
-
-
-def _carried_setup(carried, seed=3, **overrides):
-    ng = 51
-    grid = GridSpec(51, 0.01, "dirichlet-dirichlet")
-    rng = np.random.default_rng(1)
-    n = 4000
-    x = rng.uniform(0, grid.length, n)
-    v = rng.normal(size=(n, 3)) * 5e4
-    m = np.full(n, 2 * M_PROTON)
-    cs = np.ones(n)
-    p2c = np.full(n, 5e15)
-    sp = np.zeros(n, np.int32)
-    src = magnetized.SourceSpec(
-        mass=2 * M_PROTON, charge_state=1.0, p2c=5e15, species_idx=0,
-        ti=10.0 * EV_TO_K,
-    )
-    base = dict(
-        grid=grid, dt=5e-9, te=10.0 * EV_TO_K, b=(0.5, 0.5, 1.0),
-        species_z=(5,), ionization=True, reactivate="capped-source",
-        source=src, source_n=4200, react_batch=512,
-        iead_energy_max=100.0, source_sampler="threefry",
-        carried_deposit=carried,
-    )
-    base.update(overrides)
-    cfg = magnetized.MagnetizedConfig(**base)
-    st = magnetized.init_state(x, v, m, cs, p2c, sp, cfg, seed=seed,
-                               capacity=4800)
-    return cfg, st
-
-
-def _carry_residual(state, cfg):
-    """Max relative deviation of the carried rho/n leaves from a fresh
-    deposit over the current particles."""
-    from pypic_tpu.ops import deposit
-
-    dx = cfg.grid.dx
-    ia = state.active == 1
-    wr = jnp.where(ia, state.charge_state * E_CHARGE * state.p2c / dx, 0.0)
-    wn = jnp.where(ia, state.p2c / dx, 0.0)
-    rho_f = deposit(state.p, wr, cfg.grid.ng, periodic=False,
-                    method="scatter")
-    n_f = deposit(state.p, wn, cfg.grid.ng, periodic=False, method="scatter")
-    dr = jnp.max(jnp.abs(state.rho - rho_f)) / (jnp.max(jnp.abs(rho_f)) + 1e-30)
-    dn = jnp.max(jnp.abs(state.n - n_f)) / (jnp.max(jnp.abs(n_f)) + 1e-30)
-    return float(dr), float(dn)
-
-
-def test_carried_deposit_invariant_and_equivalence():
-    """carried_deposit='on': (a) the carried rho/n leaves equal a fresh
-    deposit over the current particles to f32 summation-order rounding at
-    EVERY step (wall hits zeroed in-kernel, ionization + re-activation
-    patched); (b) the dynamics match the recomputed-deposit engine; (c)
-    the exactness metrics stay zero. carried_pad=8 bounds the 5-sigma
-    displacement tails of this deliberately hot workload."""
-    cfg_on, s_on = _carried_setup("on", carried_pad=8)
-    cfg_off, s_off = _carried_setup("off")
-    step_on = jax.jit(magnetized.make_step(cfg_on))
-    step_off = jax.jit(magnetized.make_step(cfg_off))
-    events = np.zeros(3, int)
-    for i in range(25):
-        s_on, m_on = step_on(s_on)
-        s_off, m_off = step_off(s_off)
-        assert int(m_on.carry_clamped) == 0
-        assert int(m_on.n_ion_suppressed) == 0
-        dr, dn = _carry_residual(s_on, cfg_on)
-        assert dr < 5e-5 and dn < 5e-5, (i, dr, dn)
-        events += [int(m_on.n_reactivated), int(m_on.n_ionized),
-                   int(m_on.n_hit_wall)]
-    assert (events > 0).all(), f"patch paths unexercised: {events}"
-    assert int(m_on.n_active) == int(m_off.n_active)
-    # kernel-vs-XLA f32 gather rounding differs at ~1e-5/step (measured;
-    # event streams stay bit-identical — hits/ionizations match every
-    # step) and this hot ionizing workload amplifies it over the 25
-    # steps; 2.5e-3 of the phi scale bounds the measured 1.6e-3 with
-    # margin (re-measured after react_timing='reference' became the
-    # default — the one-step lifecycle shift changes the trajectory the
-    # rounding walk rides on, not the exactness invariants above)
-    np.testing.assert_allclose(np.asarray(s_on.phi), np.asarray(s_off.phi),
-                               rtol=0, atol=2.5e-3 * float(jnp.max(jnp.abs(s_off.phi))))
-    np.testing.assert_allclose(float(jnp.sum(s_on.iead)),
-                               float(jnp.sum(s_off.iead)), rtol=1e-6)
-
-
-def test_carried_deposit_clamp_is_counted_not_silent():
-    """Deposit offsets beyond carried_pad clamp at the widened window edge
-    and are COUNTED (charge misplacement is bounded by pad cells and
-    surfaced as a metric, never silent)."""
-    cfg, st = _carried_setup("on", carried_pad=2, ionization=False,
-                             reactivate="none")
-    s1, m = jax.jit(magnetized.make_step(cfg))(st)
-    # this workload's 5-sigma displacement tails exceed 2 cells
-    assert int(m.carry_clamped) > 0
-    # total deposited mass is still conserved: clamped tents stay IN-GRID
-    # (misplaced by <= the particle's displacement, never dropped)
-    from pypic_tpu.ops import deposit as _dep
-
-    ia = s1.active == 1
-    wn = jnp.where(ia, s1.p2c / cfg.grid.dx, 0.0)
-    n_f = _dep(s1.p, wn, cfg.grid.ng, periodic=False, method="scatter")
-    np.testing.assert_allclose(float(jnp.sum(s1.n)), float(jnp.sum(n_f)),
-                               rtol=1e-6)
-
-
-def test_carried_ion_cap_reverts_and_counts():
-    """Ionization events beyond carried_ion_cap revert entirely (charge
-    unchanged, ledger uncredited) and count into n_ion_suppressed — the
-    carry invariant holds regardless."""
-    cfg, st = _carried_setup("on", carried_pad=8, carried_ion_cap=4)
-    step = jax.jit(magnetized.make_step(cfg))
-    s1, m1 = step(st)
-    assert int(m1.n_ionized) <= 4
-    assert int(m1.n_ion_suppressed) > 0
-    dr, dn = _carry_residual(s1, cfg)
-    assert dr < 5e-5 and dn < 5e-5
-    # charge bookkeeping: total charge == carry integral
-    ia = s1.active == 1
-    q_tot = float(jnp.sum(jnp.where(ia, s1.charge_state * s1.p2c, 0.0)))
-    q_carry = float(jnp.sum(s1.rho) * cfg.grid.dx / E_CHARGE)
-    np.testing.assert_allclose(q_carry, q_tot, rtol=1e-5)
-
-
-def test_carried_deposit_config_validation():
-    with pytest.raises(ValueError, match="pusher"):
-        _carried_setup("on", pusher="gc")
-    with pytest.raises(ValueError, match="react_batch"):
-        _carried_setup("on", react_batch=0)
-
-
-def test_carried_deposit_data_parallel_matches_single_device():
-    """carried_deposit under 8-shard data-parallel: the carry leaves are
-    GLOBAL (psum'd) so they ride the replicated out-spec; the rank-keyed
-    re-activation patch slices the shared table disjointly per shard. The
-    sharded run matches the single-device carried run."""
-    import dataclasses as dc
-
-    from pypic_tpu.parallel import make_mesh, make_data_parallel_step
-    from pypic_tpu.parallel.dataparallel import shard_state
-
-    cfg, st = _carried_setup("on", carried_pad=8, source_sampler="hash",
-                             ionization=False)
-    step1 = jax.jit(magnetized.make_step(cfg))
-    mesh = make_mesh(8)
-    cfg8 = dc.replace(cfg, axis_name="particles")
-    step8 = make_data_parallel_step(
-        magnetized.make_step, cfg8, mesh, example_state=st)
-    s1, s8 = st, shard_state(st, mesh)
-    for i in range(10):
-        s1, m1 = step1(s1)
-        s8, m8 = step8(s8)
-        assert int(m8.carry_clamped) == 0
-        assert int(m1.n_reactivated) == int(m8.n_reactivated), i
-        assert int(m1.n_active) == int(m8.n_active), i
-    np.testing.assert_allclose(np.asarray(s8.rho), np.asarray(s1.rho),
-                               rtol=0,
-                               atol=2e-5 * float(jnp.max(jnp.abs(s1.rho))))
-    np.testing.assert_allclose(np.asarray(s8.phi), np.asarray(s1.phi),
-                               rtol=0,
-                               atol=5e-5 * float(jnp.max(jnp.abs(s1.phi))))
-
-
-def test_carried_deposit_inject_patches_carry():
-    """make_inject under carried_deposit='on' patches the carry for the
-    injected rows (the BCA seam's dynamic creation, pygcpic.py:1599-1625),
-    including dropped-overflow rows (no patch for rows that found no
-    slot)."""
-    cfg, st = _carried_setup("on", carried_pad=8, ionization=False)
-    inject = magnetized.make_inject(cfg)
-    free = int(jnp.sum(st.active != 1))
-    k = free + 5  # force 5 overflow drops
-    x_new = np.linspace(0.2, 0.8, k) * cfg.grid.length
-    st2, n_inj, n_drop = inject(
-        st,
-        jnp.asarray(x_new, jnp.float32),
-        jnp.zeros((k, 2), jnp.float32),
-        jnp.ones((k, 3), jnp.float32) * 1e4,
-        jnp.full(k, 2 * M_PROTON, jnp.float32),
-        jnp.zeros(k, jnp.float32),
-        jnp.full(k, 1e10, jnp.float32),
-        jnp.zeros(k, jnp.int32),
-        jnp.zeros(k, jnp.float32),
-        jnp.ones(k, bool),
-    )
-    assert int(n_inj) == free and int(n_drop) == 5
-    dr, dn = _carry_residual(st2, cfg)
-    assert dr < 5e-5 and dn < 5e-5, (dr, dn)
-
 
 def test_gather_weights_flag_changes_the_draw_and_validates():
     """gather_weights: 'reference' (default) reproduces the swapped
@@ -1291,8 +975,7 @@ def test_gather_weights_flag_changes_the_draw_and_validates():
     vth = np.sqrt(K_BOLTZMANN * ti / M_PROTON)
     v = rng.normal(0, vth, (n, 3))
     cfg_ref = magnetized.MagnetizedConfig(
-        grid, 1e-10, te, b=(0.5, 1.5, 0.0), species_z=(1,),
-        backend="composed", newton_backend="xla")
+        grid, 1e-10, te, b=(0.5, 1.5, 0.0), species_z=(1,))
     st = magnetized.init_state(x, v, M_PROTON, 1.0,
                                density * grid.length / n, 0, cfg_ref)
     cfg_cic = dc.replace(cfg_ref, gather_weights="cic")

@@ -388,12 +388,10 @@ def test_multiprocess_cli_domain_preset():
     assert all("CLI MULTIPROC OK" in o for o in outs)
 
 
-@pytest.mark.parametrize("backend", ["composed", "fused"])
-def test_explicit_data_parallel_matches_single_device(problem, backend):
-    """Data-parallel explicit engine (round 3c, completing the dp x engine
-    matrix): per-shard rho deposits psum before the replicated Poisson
-    solve so the carried rho/e stay global; under dp the one-kernel cycle
-    (in-kernel epilogue solve) yields to the two-stage fused sweep."""
+def test_explicit_data_parallel_matches_single_device(problem):
+    """Data-parallel explicit engine (completing the dp x engine matrix):
+    per-shard rho deposits psum before the replicated Poisson solve so the
+    carried rho/e stay global."""
     import dataclasses as dc
 
     from pypic_tpu.constants import E_CHARGE, M_ELECTRON
@@ -401,7 +399,7 @@ def test_explicit_data_parallel_matches_single_device(problem, backend):
 
     grid, x, v, params = problem
     dt = 0.1 / params.wp
-    cfg1 = explicit.ExplicitConfig(grid, dt, params.p2c, backend=backend)
+    cfg1 = explicit.ExplicitConfig(grid, dt, params.p2c)
     st = explicit.init_state(x, v, -E_CHARGE, M_ELECTRON, cfg1)
     _, m1 = run(explicit.make_step(cfg1), st, 50)
 

@@ -354,7 +354,7 @@ def test_sheath_engine_matches_reference_main_i_cycle(ref):
     cfg = sheath.SheathConfig(
         grid, dt, p2c, kbte=K_BOLTZMANN * te, kbti=K_BOLTZMANN * ti,
         tol=tol, maxiter=maxiter, gamma=0.0, tol_floor=0.0,
-        backend="composed", picard_init="field", picard_accel="none",
+        picard_init="field", picard_accel="none",
     )
     v3 = np.stack([u0, v0, w0], axis=-1)
     st = sheath.init_state(x0, v3, q, m, species, cfg, dtype=jnp.float64)
@@ -474,11 +474,10 @@ def test_magnetized_cycle_matches_reference_pic_iead_body(ref):
         pt.r[3:6] = v0[i]
         parts.append(pt)
 
-    # our side: f64 state, composed backend, XLA Newton
+    # our side: f64 state
     cfg = magnetized.MagnetizedConfig(
         grid=GridSpec(ng, L, "dirichlet-dirichlet"), dt=dt, te=te,
         b=tuple(B0), species_z=(1,), reactivate="none",
-        backend="composed", newton_backend="xla",
         newton_tol=1e-9, newton_maxiter=1000,
     )
     st = magnetized.init_state(
@@ -575,7 +574,6 @@ def test_magnetized_dn_cycle_matches_reference(ref):
     cfg = magnetized.MagnetizedConfig(
         grid=GridSpec(ng, L, "dirichlet-neumann"), dt=dt, te=te,
         b=tuple(B0), species_z=(1,), reactivate="none",
-        backend="composed", newton_backend="xla",
     )
     st = magnetized.init_state(
         x0, v0, m=mass, charge_state=1.0, p2c=p2c, species_idx=0,
@@ -684,7 +682,6 @@ def test_magnetized_iead_bins_match_reference_histogram2d(ref):
     cfg = magnetized.MagnetizedConfig(
         grid=GridSpec(ng, L, "dirichlet-dirichlet"), dt=dt, te=te,
         b=tuple(B0), species_z=(1,), reactivate="none",
-        backend="composed", newton_backend="xla",
         iead_bins=bins, iead_energy_max=e_max, iead_angle_max=a_max,
     )
     st = magnetized.init_state(

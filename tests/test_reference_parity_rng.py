@@ -124,7 +124,7 @@ def test_sheath_reinjection_and_thermostat_match_reference(ref, monkeypatch):
     cfg = sheath.SheathConfig(
         grid, dt, p2c, kbte=K_BOLTZMANN * te, kbti=K_BOLTZMANN * ti,
         tol=tol, maxiter=maxiter, gamma=gamma, tol_floor=0.0,
-        backend="composed", picard_init="field", picard_accel="none",
+        picard_init="field", picard_accel="none",
         rng_sampler="threefry",
     )
     v3 = np.stack([u0, v0, w0], axis=-1)
@@ -355,7 +355,6 @@ def test_magnetized_reactivate_and_ledger_match_reference(ref, monkeypatch):
         source=magnetized.SourceSpec(mass=mass, charge_state=1.0, p2c=p2c,
                                      species_idx=0, ti=ti),
         source_sampler="threefry", react_batch=0,
-        backend="composed", newton_backend="xla",
         newton_tol=1e-9, newton_maxiter=1000,
     )
     st = magnetized.init_state(
@@ -529,7 +528,6 @@ def test_magnetized_capped_source_matches_reference_reactivate_or_delete(
         source=magnetized.SourceSpec(mass=mass, charge_state=1.0, p2c=p2c,
                                      species_idx=0, ti=ti),
         source_sampler="threefry", react_batch=0,
-        backend="composed", newton_backend="xla",
         newton_tol=1e-9, newton_maxiter=1000,
     )
     st = magnetized.init_state(
@@ -720,7 +718,6 @@ def test_dn_flux_inflow_cycle_matches_reference(ref, monkeypatch):
         source=magnetized.SourceSpec(mass=mass, charge_state=1.0, p2c=p2c,
                                      species_idx=0, ti=ti, vx=vx_drift),
         source_sampler="threefry", react_batch=0,
-        backend="composed", newton_backend="xla",
     )
     st = magnetized.init_state(
         x0, v0, m=mass, charge_state=1.0, p2c=p2c, species_idx=0,
@@ -851,7 +848,6 @@ def test_forced_ionization_and_ledger_match_reference(ref):
         grid=GridSpec(ng, L, "dirichlet-dirichlet"), dt=dt, te=te,
         b=tuple(B0), species_z=(1,), reactivate="none",
         ionization=True, max_charge_state=1,
-        backend="composed", newton_backend="xla",
         newton_tol=1e-9, newton_maxiter=1000,
     )
     st = magnetized.init_state(
@@ -955,7 +951,6 @@ def test_magnetized_dd_cycle_long_horizon(ref):
     cfg = magnetized.MagnetizedConfig(
         grid=GridSpec(ng, L, "dirichlet-dirichlet"), dt=dt, te=te,
         b=tuple(B0), species_z=(1,), reactivate="none",
-        backend="composed", newton_backend="xla",
         newton_tol=1e-9, newton_maxiter=1000,
     )
     st = magnetized.init_state(
